@@ -1,0 +1,19 @@
+"""arseg_tpu_torch: the PyTorch/CUDA port of arseg_tpu for NVIDIA Hopper.
+
+AR-Seg serving of compressed video: the keyframe runs the HR branch, every
+other frame of the GOP runs the 0.5x LR branch, and the keyframe feature is
+MV-warped to each frame and merged by CReFF local attention. The two
+hand-written CUDA kernels of this path live in ``csrc/``:
+``creff_qkv_fused.cu`` (fused CReFF module) and ``warp_bilinear.cu`` (MV warp).
+
+Layout: models are ``nn.Module``s in NCHW (channels_last in memory) with the
+reference checkpoint's state-dict key names; the public ops
+(``ops.warp_feature``, ``ops.creff_local_module_resize``) take NHWC tensors.
+Entry points default to ``device="cuda"``.
+"""
+
+from arseg_tpu_torch._device import resolve_device, set_f32_parity_mode
+
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "set_f32_parity_mode", "__version__"]

@@ -1,0 +1,31 @@
+// Plain C interface of the port's CUDA kernels.
+//
+// Each launcher checks its arguments, launches on `stream` and returns
+// cudaGetLastError() as an int (0 on success). It allocates nothing and
+// does not synchronise: the caller owns every buffer. `dtype` is 0 for
+// float32 and 1 for bfloat16; all pointers are to contiguous NHWC data.
+#pragma once
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+// out = lr_up + softmax(similar(dw3(lr_up; q), dw3(ref; k))) . dw3(ref; v)
+// over a kh x kw window. lr_up, ref, out: [n, h, w, c].
+// taps: [3][9][c] float32 (q, k, v; tap a*3+b of the 3x3 kernel).
+// bias: [3][c] float32. c % 16 == 0; kh == kw in {3, 5, 7}.
+int arseg_creff_qkv_fused(void* out, const void* lr_up, const void* ref,
+                          const float* taps, const float* bias, int n, int h,
+                          int w, int c, int kh, int kw, int dtype,
+                          void* stream);
+
+// out[b] = bilinear zero-padding sample of src[ns == 1 ? 0 : b] at
+// (x + fx, y + fy), grid_sample semantics. src: [ns, h, w, c];
+// fx, fy: [n, h, w] float32; out: [n, h, w, c]. c % 8 == 0.
+int arseg_warp_bilinear(void* out, const void* src, const float* fx,
+                        const float* fy, int n, int ns, int h, int w, int c,
+                        int align_corners, int dtype, void* stream);
+
+#ifdef __cplusplus
+}
+#endif

@@ -1,0 +1,20 @@
+from arseg_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from arseg_tpu_torch.ops.warp import warp_feature, pad_for_warp, scale_and_resize_flow
+from arseg_tpu_torch.ops.local_attention import (
+    local_similar,
+    local_weighting,
+    creff_local_module,
+    creff_local_module_resize,
+)
+
+__all__ = [
+    "resize_bilinear",
+    "resize_nearest",
+    "warp_feature",
+    "pad_for_warp",
+    "scale_and_resize_flow",
+    "local_similar",
+    "local_weighting",
+    "creff_local_module",
+    "creff_local_module_resize",
+]
