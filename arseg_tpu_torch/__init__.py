@@ -2,9 +2,11 @@
 
 AR-Seg serving of compressed video: the keyframe runs the HR branch, every
 other frame of the GOP runs the 0.5x LR branch, and the keyframe feature is
-MV-warped to each frame and merged by CReFF local attention. The two
-hand-written CUDA kernels of this path live in ``csrc/``:
-``creff_qkv_fused.cu`` (fused CReFF module) and ``warp_bilinear.cu`` (MV warp).
+MV-warped to each frame and merged by CReFF local attention. The
+hand-written CUDA kernels live in ``csrc/``: ``creff_qkv_fused.cu`` (K1,
+fused CReFF module), ``creff_phase2_argmax.cu`` (K3, the module + 1x1 conv +
+argmax head of camvid-psp18 V1; both on ``creff_module.cuh``) and
+``warp_bilinear.cu`` (K2, MV warp).
 
 Layout: models are ``nn.Module``s in NCHW (channels_last in memory) with the
 reference checkpoint's state-dict key names; the public ops

@@ -1,9 +1,8 @@
-// Fused CReFF module (MyAttention forward), NHWC:
+// K1: the fused CReFF module (MyAttention forward), NHWC:
 //   out = lr_up + softmax(similar(dw3(lr_up; q), dw3(ref; k))) . dw3(ref; v)
-// over a K x K window, where dw3 is a 3x3 depthwise conv with bias and
-// similar/weighting follow nn.Unfold: window positions outside the image
-// contribute logit 0 and value 0 (K and V are masked to 0 there, bias
-// included).
+// over a K x K window. The body (tiles, halo staging, the two channel
+// passes) is creff_module.cuh, shared with K3; this file's epilogue stores
+// the fused feature, rounded once to the input type.
 //
 // Replaces: arseg_tpu/ops/pallas_creff.py creff_qkv_fused (_qkv_kernel ->
 // _fused_module_body). The TPU kernel streamed halo windows by manual DMA
@@ -15,243 +14,30 @@
 // two 49-tap window products per channel), so its least time is set by
 // bytes (~27 us). This first kernel is bound instead by shared-memory reads
 // in the window products: one load per multiply-add.
-//
-// Design: one block of TH x TW threads per output tile, one thread per
-// output pixel. Channels go in chunks of CC. Pass 1, per chunk: stage the
-// ref halo tile (tile + K + 1) and the lr_up halo tile (tile + 2) in shared
-// memory, compute the K chunk over tile + K - 1 (masked to the image) and
-// each thread's own Q chunk, and add q . k into the thread's K*K float32
-// logits held in registers. Softmax in float32 in registers. Pass 2, per
-// chunk: stage the ref halo again, compute the V chunk, and each thread sums
-// p . v for its pixel, adds the residual and writes CC channels. Shared
-// arrays are channel-major with an odd channel stride, so neighbouring
-// threads read neighbouring words. Q, K, V and p are rounded to the
-// input type as the TPU kernel does; all sums are float32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+#include "creff_module.cuh"
 #include "kernels.h"
 
 namespace {
 
-constexpr int TH = 8;   // output tile rows
-constexpr int TW = 16;  // output tile cols (TH * TW threads)
-constexpr int CC = 16;  // channels per chunk
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+struct StoreFused {
+  T* out;  // [n, h, w, c]
+  int c;
 
-// round a float32 value to T and back (identity for float32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
-
-template <int K>
-struct Geom {
-  static constexpr int P = K / 2;
-  static constexpr int RH = TH + K + 1, RW = TW + K + 1;  // ref halo tile
-  static constexpr int KH = TH + K - 1, KW = TW + K - 1;  // K/V positions
-  static constexpr int LH = TH + 2, LW = TW + 2;          // lr_up halo tile
-  static constexpr int RS = (RH * RW) | 1;                // odd channel strides
-  static constexpr int KS = (KH * KW) | 1;
-  static constexpr int LS = (LH * LW) | 1;
-  static constexpr int SMEM_FLOATS = CC * (RS + KS + LS);
+  __device__ __forceinline__ void chunk(int64_t pixel, int c0, const float f[creff::CC]) {
+    T* o = out + pixel * c + c0;
+#pragma unroll
+    for (int cc = 0; cc < creff::CC; ++cc) o[cc] = creff::from_f32<T>(f[cc]);
+  }
+  __device__ __forceinline__ void finish(int64_t, bool) {}
 };
 
-// Stage rows [ty0, ty0+rows) x cols [tx0, tx0+cols) x channels [c0, c0+CC)
-// of one image into dst[cc * stride + pos] as float32; zero outside it.
 template <typename T>
-__device__ void stage_tile(float* dst, const T* __restrict__ img, int h, int w, int c,
-                           int ty0, int tx0, int rows, int cols, int stride, int c0) {
-  const int total = rows * cols * CC;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int cc = t % CC;
-    const int pos = t / CC;
-    const int gy = ty0 + pos / cols;
-    const int gx = tx0 + pos % cols;
-    float v = 0.0f;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w)
-      v = to_f32(img[(static_cast<int64_t>(gy) * w + gx) * c + c0 + cc]);
-    dst[cc * stride + pos] = v;
-  }
-}
-
-// Depthwise 3x3 (+bias) of the staged ref tile at every K/V position of the
-// block, masked to 0 outside the image and rounded to T. Taps are summed in
-// the TPU kernel's order (columns outer, rows inner), then the bias.
-template <typename T, int K>
-__device__ void dw_kv(float* kv, const float* r, const float* __restrict__ taps,
-                      const float* __restrict__ bias, int h, int w, int c, int c0,
-                      int y0, int x0) {
-  using G = Geom<K>;
-  const int total = G::KH * G::KW * CC;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int pos = t % (G::KH * G::KW);
-    const int cc = t / (G::KH * G::KW);
-    const int kr = pos / G::KW;
-    const int kc = pos % G::KW;
-    const int gy = y0 - G::P + kr;
-    const int gx = x0 - G::P + kc;
-    float acc = 0.0f;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-      const float* rb = r + cc * G::RS + kr * G::RW + kc;
-      bool first = true;
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float term = __fmul_rn(rb[a * G::RW + b], taps[(a * 3 + b) * c + c0 + cc]);
-          acc = first ? term : __fadd_rn(acc, term);
-          first = false;
-        }
-      }
-      acc = round_to<T>(__fadd_rn(acc, bias[c0 + cc]));
-    }
-    kv[cc * G::KS + pos] = acc;
-  }
-}
-
-template <typename T, int K>
-__global__ void __launch_bounds__(TH* TW)
-    creff_qkv_fused_kernel(T* __restrict__ out, const T* __restrict__ lr,
-                           const T* __restrict__ ref, const float* __restrict__ taps,
-                           const float* __restrict__ bias, int h, int w, int c) {
-  using G = Geom<K>;
-  extern __shared__ float smem[];
-  float* r_s = smem;               // [CC][RS] ref halo
-  float* kv_s = r_s + CC * G::RS;  // [CC][KS] K (pass 1) or V (pass 2)
-  float* l_s = kv_s + CC * G::KS;  // [CC][LS] lr_up halo
-
-  const int py = threadIdx.x / TW;
-  const int px = threadIdx.x % TW;
-  const int y0 = blockIdx.y * TH;
-  const int x0 = blockIdx.x * TW;
-  const int64_t plane = static_cast<int64_t>(h) * w * c;
-  const T* lr_img = lr + blockIdx.z * plane;
-  const T* ref_img = ref + blockIdx.z * plane;
-  const float* q_taps = taps;
-  const float* k_taps = taps + 9 * c;
-  const float* v_taps = taps + 18 * c;
-
-  float s[K * K];
-#pragma unroll
-  for (int o = 0; o < K * K; ++o) s[o] = 0.0f;
-
-  // ---- pass 1: logits --------------------------------------------------
-  for (int c0 = 0; c0 < c; c0 += CC) {
-    __syncthreads();  // the previous chunk's readers are done
-    stage_tile(r_s, ref_img, h, w, c, y0 - G::P - 1, x0 - G::P - 1, G::RH, G::RW, G::RS, c0);
-    stage_tile(l_s, lr_img, h, w, c, y0 - 1, x0 - 1, G::LH, G::LW, G::LS, c0);
-    __syncthreads();
-    dw_kv<T, K>(kv_s, r_s, k_taps, bias + c, h, w, c, c0, y0, x0);
-    float q[CC];
-#pragma unroll
-    for (int cc = 0; cc < CC; ++cc) {
-      const float* lb = l_s + cc * G::LS + py * G::LW + px;
-      float acc = 0.0f;
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float term = __fmul_rn(lb[a * G::LW + b], q_taps[(a * 3 + b) * c + c0 + cc]);
-          acc = (a == 0 && b == 0) ? term : __fadd_rn(acc, term);
-        }
-      }
-      q[cc] = round_to<T>(__fadd_rn(acc, bias[c0 + cc]));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int cc = 0; cc < CC; ++cc) {
-      const float* kb = kv_s + cc * G::KS + py * G::KW + px;
-#pragma unroll
-      for (int dy = 0; dy < K; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < K; ++dx) s[dy * K + dx] = fmaf(q[cc], kb[dy * G::KW + dx], s[dy * K + dx]);
-      }
-    }
-  }
-
-  // ---- softmax in float32, p rounded to T ------------------------------
-  float m = s[0];
-#pragma unroll
-  for (int o = 1; o < K * K; ++o) m = fmaxf(m, s[o]);
-  float sum = 0.0f;
-#pragma unroll
-  for (int o = 0; o < K * K; ++o) {
-    s[o] = expf(s[o] - m);
-    sum += s[o];
-  }
-#pragma unroll
-  for (int o = 0; o < K * K; ++o) s[o] = round_to<T>(s[o] / sum);
-
-  // ---- pass 2: p . v + residual -----------------------------------------
-  const int gy = y0 + py;
-  const int gx = x0 + px;
-  const bool inside = gy < h && gx < w;
-  const int64_t pix = (static_cast<int64_t>(gy) * w + gx) * c;
-  for (int c0 = 0; c0 < c; c0 += CC) {
-    __syncthreads();
-    stage_tile(r_s, ref_img, h, w, c, y0 - G::P - 1, x0 - G::P - 1, G::RH, G::RW, G::RS, c0);
-    __syncthreads();
-    dw_kv<T, K>(kv_s, r_s, v_taps, bias + 2 * c, h, w, c, c0, y0, x0);
-    __syncthreads();
-    if (inside) {
-      float acc[CC];
-#pragma unroll
-      for (int cc = 0; cc < CC; ++cc) acc[cc] = 0.0f;
-#pragma unroll
-      for (int dy = 0; dy < K; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < K; ++dx) {
-          const float p = s[dy * K + dx];
-          const float* vb = kv_s + (py + dy) * G::KW + px + dx;
-#pragma unroll
-          for (int cc = 0; cc < CC; ++cc) acc[cc] = fmaf(p, vb[cc * G::KS], acc[cc]);
-        }
-      }
-      T* o = out + blockIdx.z * plane + pix + c0;
-      const T* res = lr_img + pix + c0;
-#pragma unroll
-      for (int cc = 0; cc < CC; ++cc) o[cc] = from_f32<T>(to_f32(res[cc]) + acc[cc]);
-    }
-  }
-}
-
-template <typename T, int K>
-int launch(void* out, const void* lr, const void* ref, const float* taps, const float* bias,
-           int n, int h, int w, int c, cudaStream_t stream) {
-  if (n == 0) return 0;
-  const size_t smem = sizeof(float) * Geom<K>::SMEM_FLOATS;
-  cudaError_t err = cudaFuncSetAttribute(creff_qkv_fused_kernel<T, K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  creff_qkv_fused_kernel<T, K><<<grid, TH * TW, smem, stream>>>(
-      static_cast<T*>(out), static_cast<const T*>(lr), static_cast<const T*>(ref), taps, bias,
-      h, w, c);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_k(void* out, const void* lr, const void* ref, const float* taps, const float* bias,
-             int n, int h, int w, int c, int k, cudaStream_t stream) {
-  switch (k) {
-    case 3: return launch<T, 3>(out, lr, ref, taps, bias, n, h, w, c, stream);
-    case 5: return launch<T, 5>(out, lr, ref, taps, bias, n, h, w, c, stream);
-    case 7: return launch<T, 7>(out, lr, ref, taps, bias, n, h, w, c, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int run(void* out, const void* lr, const void* ref, const float* taps, const float* bias, int n,
+        int h, int w, int c, int k, cudaStream_t stream) {
+  const StoreFused<T> epi{static_cast<T*>(out), c};
+  return creff::launch_k<T>(lr, ref, taps, bias, n, h, w, c, k, epi, stream);
 }
 
 }  // namespace
@@ -259,10 +45,10 @@ int launch_k(void* out, const void* lr, const void* ref, const float* taps, cons
 extern "C" int arseg_creff_qkv_fused(void* out, const void* lr_up, const void* ref,
                                      const float* taps, const float* bias, int n, int h,
                                      int w, int c, int kh, int kw, int dtype, void* stream) {
-  if (kh != kw || c % CC != 0 || n < 0 || h <= 0 || w <= 0 || n > 65535)
+  if (kh != kw || c % creff::CC != 0 || n < 0 || h <= 0 || w <= 0 || n > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_k<float>(out, lr_up, ref, taps, bias, n, h, w, c, kh, s);
-  if (dtype == 1) return launch_k<__nv_bfloat16>(out, lr_up, ref, taps, bias, n, h, w, c, kh, s);
+  if (dtype == 0) return run<float>(out, lr_up, ref, taps, bias, n, h, w, c, kh, s);
+  if (dtype == 1) return run<__nv_bfloat16>(out, lr_up, ref, taps, bias, n, h, w, c, kh, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

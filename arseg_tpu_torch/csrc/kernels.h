@@ -6,6 +6,8 @@
 // float32 and 1 for bfloat16; all pointers are to contiguous NHWC data.
 #pragma once
 
+#include <stdint.h>
+
 #ifdef __cplusplus
 extern "C" {
 #endif
@@ -18,6 +20,16 @@ int arseg_creff_qkv_fused(void* out, const void* lr_up, const void* ref,
                           const float* taps, const float* bias, int n, int h,
                           int w, int c, int kh, int kw, int dtype,
                           void* stream);
+
+// out[n,y,x] = argmax_k(sum_c round(fused[n,y,x,c]) * fc_w[c,k] + fc_b[k]),
+// fused as in arseg_creff_qkv_fused, rounded to the input type; lowest
+// index on ties. fc_w: [c][n_classes] float32, fc_b: [n_classes] float32;
+// out: [n, h, w] int32. 1 <= n_classes <= 19.
+int arseg_creff_phase2_argmax(int32_t* out, const void* lr_up, const void* ref,
+                              const float* taps, const float* bias,
+                              const float* fc_w, const float* fc_b, int n, int h,
+                              int w, int c, int n_classes, int kh, int kw,
+                              int dtype, void* stream);
 
 // out[b] = bilinear zero-padding sample of src[ns == 1 ? 0 : b] at
 // (x + fx, y + fy), grid_sample semantics. src: [ns, h, w, c];

@@ -1,12 +1,16 @@
 """GOP AR inference pipeline — port of ``arseg_tpu/gop/pipeline.py``
 (``ARPipeline._gop_step`` with batched phase 1, and ``scan_step``).
 
-Per GOP: the HR model runs on the keyframe; the G-1 other frames are
-resized to the LR scale and run through the LR backbone in one batch; the
-flow planes are resized to the feature grid; the keyframe feature is
-MV-warped to every frame (K2) and fused with each frame's LR feature by
-CReFF (K1), all G-1 frames in one launch each; the planes head (1x1 conv,
-x8 bilinear, argmax) gives the class maps.
+Per GOP: the HR model runs on the keyframe (``forward_key``); the G-1
+other frames are resized to the LR scale and run through the LR model's
+phase 1 in one batch; the flow planes are resized to the feature grid; the
+keyframe feature is MV-warped to every frame (K2) and fused with each
+frame's LR feature by CReFF, all G-1 frames in one launch each. The head is
+the model's ``forward_phase2_argmax`` where ``phase2_argmax_head`` allows
+it: camvid-bise18 fuses with K1 and takes the planes head (1x1 conv, x8
+bilinear, argmax); camvid-psp18 V1 fuses at full resolution and runs K3
+(module, 1x1 conv and argmax in one kernel). Elsewhere (camvid-psp18 V2)
+``forward_phase2`` -> resize -> argmax.
 
 Each stage runs under a ``torch.profiler.record_function`` span named
 ``gop.<stage>`` (a no-op unless a profiler is recording), which
@@ -43,7 +47,9 @@ def _nchw(x):
 class ARPipeline:
     """Batched AR inference over one GOP.
 
-    hr_model / lr_model: registry models (lr_model built with fuse=True).
+    hr_model / lr_model: registry models (lr_model built with fuse=True;
+    for camvid-psp18 V2 the HR model too, with fuse_version=2, so that
+    ``forward_key`` returns the backbone feature CReFF takes).
     The pipeline keeps its own copies of them on ``device`` in ``dtype``
     (channels_last, eval mode); the caller's modules are not changed.
     scale: LR branch scale. normalize=(mean, std): frames may be raw uint8
@@ -109,7 +115,9 @@ class ARPipeline:
         with record_function("gop.fuse_head"):
             head = phase2_argmax_head(self.lr_model, warped.shape[-2:], (h, w))
             if head is not None:
-                preds, fused = head(feat, warped, return_fused=True)
+                preds = head(feat, warped, return_fused=return_fused)
+                if return_fused:
+                    preds, fused = preds
             else:
                 logits, fused = self.lr_model.forward_phase2(feat, warped)
                 logits = F.interpolate(logits, size=(h, w), mode="bilinear",

@@ -18,19 +18,13 @@ import torch.nn.functional as F
 
 from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.attention import get_fusion
-from arseg_tpu_torch.nn.functional import ConvBNReLU, batch_norm
+from arseg_tpu_torch.nn.functional import ConvBNReLU, batch_norm, resize_bilinear_nchw
 from arseg_tpu_torch.nn.resnet import ResNet
 
 
 def _upsample(x, factor):
     return F.interpolate(x, size=(x.shape[-2] * factor, x.shape[-1] * factor),
                          mode="bilinear", align_corners=False)
-
-
-def _resize_ac(x, hw):
-    if tuple(x.shape[-2:]) == tuple(hw):
-        return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=True)
 
 
 class AttentionRefinementModule(nn.Module):
@@ -61,7 +55,7 @@ class ContextPath(nn.Module):
         avg = self.conv_avg(feat32.mean(dim=(2, 3), keepdim=True))
         feat32_sum = self.arm32(feat32) + avg
         feat32_up = F.interpolate(feat32_sum, scale_factor=2, mode="nearest")
-        feat32_up = self.conv_head32(_resize_ac(feat32_up, feat16.shape[-2:]))
+        feat32_up = self.conv_head32(resize_bilinear_nchw(feat32_up, feat16.shape[-2:], True))
         feat16_sum = self.arm16(feat16) + feat32_up
         feat16_up = self.conv_head16(F.interpolate(feat16_sum, scale_factor=2, mode="nearest"))
         return feat16_up, feat32_up  # x8, x16
@@ -146,7 +140,7 @@ class BiSeNetV1(nn.Module):
 
     def _trunk(self, x):
         feat_cp8, feat_cp16 = self.cp(x)
-        feat_sp = _resize_ac(self.sp(x), feat_cp8.shape[-2:])
+        feat_sp = resize_bilinear_nchw(self.sp(x), feat_cp8.shape[-2:], True)
         return feat_cp8, feat_cp16, self.ffm(feat_sp, feat_cp8)
 
     def _aux(self, feat_cp8, feat_cp16):

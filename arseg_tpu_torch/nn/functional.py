@@ -1,5 +1,5 @@
 """Building blocks with torch semantics, NCHW (port of the plain part of
-``arseg_tpu/nn/functional.py``: conv, batch norm, relu).
+``arseg_tpu/nn/functional.py``: conv, batch norm, relu, bilinear resize).
 
 The JAX package keeps parameters in a tree and collects BN statistics in a
 context; here they are ``nn.Conv2d`` / ``nn.BatchNorm2d`` modules, so the
@@ -14,6 +14,14 @@ import torch.nn.functional as F
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+
+def resize_bilinear_nchw(x, hw, align_corners):
+    """Bilinear resize of an NCHW tensor to hw (F.interpolate semantics);
+    the input itself when it already has that size."""
+    if tuple(x.shape[-2:]) == tuple(hw):
+        return x
+    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=align_corners)
 
 
 def batch_norm(c):

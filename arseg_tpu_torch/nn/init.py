@@ -39,6 +39,30 @@ def conv_kaiming_uniform_(conv: nn.Conv2d, gen: torch.Generator):
 
 
 @torch.no_grad()
+def conv_msra_(conv: nn.Conv2d, gen: torch.Generator):
+    """N(0, sqrt(2/n)), n = kh*kw*cout (the dilated ResNet's init), zero
+    bias."""
+    kh, kw = conv.kernel_size
+    conv.weight.copy_(_normal(conv.weight.shape, math.sqrt(2.0 / (kh * kw * conv.out_channels)),
+                              gen))
+    if conv.bias is not None:
+        conv.bias.zero_()
+
+
+@torch.no_grad()
+def linear_default_(lin: nn.Linear, gen: torch.Generator):
+    """torch Linear default init: weight and bias uniform(+-1/sqrt(in))."""
+    bound = 1.0 / math.sqrt(lin.in_features)
+    lin.weight.copy_(_uniform(lin.weight.shape, bound, gen))
+    lin.bias.copy_(_uniform(lin.bias.shape, bound, gen))
+
+
+@torch.no_grad()
+def prelu_default_(prelu: nn.PReLU):
+    prelu.weight.fill_(0.25)
+
+
+@torch.no_grad()
 def bn_default_(bn: nn.BatchNorm2d):
     bn.weight.fill_(1.0)
     bn.bias.zero_()

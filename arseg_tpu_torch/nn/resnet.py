@@ -1,8 +1,15 @@
-"""Strided ResNet-18/34 (the BiSeNet context backbone), NCHW — port of the
-"bisenet" variant of ``arseg_tpu/nn/resnet.py``: strides (1, 2, 2, 2), no
-dilation, ``return_stages`` gives (feat8, feat16, feat32). Module names
-follow the torch checkpoint: conv1, bn1, layer{1..4}.{i}.{conv1, bn1,
-conv2, bn2, downsample.{0,1}}."""
+"""ResNet-18/34 backbones, NCHW — port of the basic-block variants of
+``arseg_tpu/nn/resnet.py``:
+
+* "bisenet" (the BiSeNet context backbone): strides (1, 2, 2, 2), no
+  dilation; ``return_stages`` gives (feat8, feat16, feat32).
+* "arseg" (the dilated PSPNet backbone, 8x downsample): strides
+  (1, 2, 1, 1), dilations (1, 1, 2, 4); block 0 of each layer keeps
+  dilation 1 in both convs, later blocks use (d, d); the forward returns
+  (x4, x3). ``stem`` and ``layer{1..4}`` give per-layer access.
+
+Module names follow the torch checkpoint: conv1, bn1, layer{1..4}.{i}.{conv1,
+bn1, conv2, bn2, downsample.{0,1}}."""
 
 import torch.nn as nn
 import torch.nn.functional as F
@@ -11,14 +18,20 @@ from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.functional import batch_norm
 
 RESNET_BASIC_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+VARIANTS = {
+    # variant: (strides, dilations)
+    "bisenet": ((1, 2, 2, 2), (1, 1, 1, 1)),
+    "arseg": ((1, 2, 1, 1), (1, 1, 2, 4)),
+}
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin, planes, stride):
+    def __init__(self, cin, planes, stride, dil1=1, dil2=1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 3, stride=stride, padding=1, bias=False)
+        self.conv1 = nn.Conv2d(cin, planes, 3, stride=stride, padding=dil1, dilation=dil1,
+                               bias=False)
         self.bn1 = batch_norm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=dil2, dilation=dil2, bias=False)
         self.bn2 = batch_norm(planes)
         self.downsample = None
         if stride != 1 or cin != planes:
@@ -34,35 +47,49 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    def __init__(self, depth=18, input_channel=3):
+    def __init__(self, depth=18, input_channel=3, variant="bisenet"):
         super().__init__()
         if depth not in RESNET_BASIC_LAYERS:
             raise NotImplementedError(
-                f"resnet{depth}: only the basic-block ResNet-18/34 of BiSeNet is "
-                "ported (ROADMAP Queue A, PSPNet family)"
+                f"resnet{depth}: only the basic-block ResNet-18/34 is ported (ROADMAP "
+                "Queue A, PSPNet family)"
             )
+        if variant not in VARIANTS:
+            raise NotImplementedError(
+                f"resnet variant {variant!r} is not ported (ROADMAP Queue A, PSPNet family); "
+                f"options: {sorted(VARIANTS)}"
+            )
+        self.variant = variant
+        strides, dilations = VARIANTS[variant]
         self.conv1 = nn.Conv2d(input_channel, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = batch_norm(64)
         cin = 64
-        for li, (count, stride) in enumerate(zip(RESNET_BASIC_LAYERS[depth], (1, 2, 2, 2))):
+        layers = zip(RESNET_BASIC_LAYERS[depth], strides, dilations)
+        for li, (count, stride, dil) in enumerate(layers):
             planes = 64 * 2**li
             blocks = []
             for bi in range(count):
-                blocks.append(BasicBlock(cin, planes, stride if bi == 0 else 1))
+                d = 1 if bi == 0 else dil
+                blocks.append(BasicBlock(cin, planes, stride if bi == 0 else 1, d, d))
                 cin = planes
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
 
     def init_weights(self, gen):
-        """torch Conv2d default init for every conv, default BN."""
+        """"bisenet": torch Conv2d default init for every conv; "arseg":
+        N(0, sqrt(2/n)) (msra). Default BN."""
+        conv_init = Init.conv_msra_ if self.variant == "arseg" else Init.conv_kaiming_uniform_
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                Init.conv_kaiming_uniform_(m, gen)
+                conv_init(m, gen)
             elif isinstance(m, nn.BatchNorm2d):
                 Init.bn_default_(m)
 
+    def stem(self, x):
+        """7x7/s2 conv, BN, relu, 3x3/s2 max pool."""
+        return F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, stride=2, padding=1)
+
     def forward(self, x, return_stages=True):
-        x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, stride=2, padding=1)
-        x = self.layer1(x)
+        x = self.layer1(self.stem(x))
         x2 = self.layer2(x)
         x3 = self.layer3(x2)
         x4 = self.layer4(x3)

@@ -1,9 +1,10 @@
 """Spatial resampling with torch ``F.interpolate`` semantics, NHWC layout.
 
 Plain forms of ``arseg_tpu/ops/resize.py``: bilinear (``align_corners``
-True and False) and nearest. The index tables (``_linear_gather``,
-``_linear_matrix``, ``_nearest_index``) are copies of the JAX package's, so
-the flow-plane resize in ``ops/warp.py`` repeats its arithmetic exactly.
+True and False), nearest, and the adaptive pools of the PSP head. The index
+tables (``_linear_gather``, ``_linear_matrix``, ``_nearest_index``,
+``_adaptive_avg_matrix``) are copies of the JAX package's, so the flow-plane
+resize in ``ops/warp.py`` and the pools repeat its arithmetic.
 """
 
 from functools import lru_cache
@@ -52,6 +53,18 @@ def _nearest_index(in_size: int, out_size: int):
     return np.minimum(idx, in_size - 1)
 
 
+@lru_cache(maxsize=None)
+def _adaptive_avg_matrix(in_size: int, out_size: int):
+    """[out_size, in_size] averaging matrix matching AdaptiveAvgPool along
+    one axis (start=floor(j*in/out), end=ceil((j+1)*in/out))."""
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    for j in range(out_size):
+        start = (j * in_size) // out_size
+        end = -((-(j + 1) * in_size) // out_size)  # ceil
+        m[j, start:end] = 1.0 / (end - start)
+    return m
+
+
 def _lerp_axis(x, in_size, out_size, align_corners, axis):
     """1-D linear resample along `axis`: two gathers and (1-w)*x0 + w*x1."""
     i0, i1, w = _linear_gather(in_size, out_size, align_corners)
@@ -93,3 +106,19 @@ def resize_nearest(x, out_hw):
     y, lead = _as_nchw(x)
     y = F.interpolate(y, size=(oh, ow), mode="nearest")
     return _from_nchw(y, lead)
+
+
+def adaptive_avg_pool(x, out_hw):
+    """AdaptiveAvgPool2d of an NHWC (any leading batch) tensor: two
+    averaging-matrix products in float32 (H, then W), cast back."""
+    h, w = x.shape[-3], x.shape[-2]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    mh = torch.from_numpy(_adaptive_avg_matrix(h, oh)).to(x.device)
+    mw = torch.from_numpy(_adaptive_avg_matrix(w, ow)).to(x.device)
+    y = torch.einsum("ph,...hwc->...pwc", mh, x.float())
+    return torch.einsum("qw,...pwc->...pqc", mw, y).to(x.dtype)
+
+
+def adaptive_max_pool_11(x):
+    """AdaptiveMaxPool2d((1, 1)) + flatten: [..., H, W, C] -> [..., C]."""
+    return x.amax(dim=(-3, -2))

@@ -20,6 +20,8 @@ SHARED_NAMES = {
     },
 }
 SHARED_NAMES["cityscapes-bise18"] = SHARED_NAMES["camvid-bise18"]
+# PSPNet registers every module once; PReLU slopes stay [1]
+SHARED_NAMES["camvid-psp18"] = {}
 
 
 def _leaf(name, arr):

@@ -9,15 +9,21 @@ Phases, in order; any failure exits non-zero:
      power limit.
   2. build: builds the kernels of arseg_tpu_torch/csrc, prints the seconds.
   3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes, in float32 and bfloat16, with the tolerance stated;
-     kernel, plain and library times (CUDA events, median of 20 runs after
-     warm-up).
-  4. pipeline: camvid-bise18 AR serving at 720x960, GOP 12, LR 0.5x, bf16,
-     full width, random seeded weights: scan_step over 3 GOPs of uint8
-     frames, with the launch counts of every kernel read around that run;
-     then one GOP on the CPU (plain versions, float32) against the card in
-     float32.
-  5. a JSON line of the kernels, and the last line {"ok": true, ...}.
+     paths' shapes, in float32 and bfloat16, with the tolerance stated:
+     K1 and K2 at the camvid-bise18 shapes and the camvid-psp18 ones, K3 at
+     camvid-psp18 V1's; kernel, plain and library times (CUDA events, median
+     of 20 kernel runs, of 5 plain runs at the psp18 shapes). Then K2 on the
+     flow cases of tests/test_pallas_warp*.py at C=64 and C=256.
+  4. camvid-bise18 AR 0.5x, GOP 12, 720x960, bf16, full width, random
+     seeded weights: scan_step over 3 GOPs of uint8 frames, with the launch
+     counts of every kernel read around that run; then one GOP on the CPU
+     (plain versions, float32) against the card in float32.
+  5. camvid-psp18 V1 AR, the same traffic: scan_step over 3 GOPs with its
+     launch counts (K3 and K2 once per GOP, K1 never); a short GOP
+     (keyframe + 2 frames) on the CPU in float32 against the card in
+     float32; one V2 GOP on the card (K1 once).
+  6. a JSON line of the kernels, and the last line {"ok": true, ...}.
+Every phase prints its seconds.
 """
 
 import json
@@ -31,7 +37,9 @@ import torch.nn.functional as F
 
 GOP, H, W, SCALE, CLIP_GOPS = 12, 720, 960, 0.5, 3
 FEAT_HW = (H // 8, W // 8)
-C = 256
+C = 256       # camvid-bise18 fusion channels, at FEAT_HW
+C_PSP = 64    # camvid-psp18 V1 fusion channels, at (H, W)
+N_CLASSES = 12
 CAMVID_MEAN = (0.39068785, 0.40521392, 0.41434407)
 CAMVID_STD = (0.29652068, 0.30514979, 0.30080369)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -43,12 +51,20 @@ TOL = {
     "creff_qkv_fused": {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -6},
     "warp_bilinear": {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7},
 }
+# K3 writes class maps: the share of pixels equal to the plain version's,
+# and where they differ the plain version's top two logits must be a near
+# tie, within this share of max |logit| (float32: sums in another order;
+# bfloat16: Q, K, V, p and the fused feature rounded after such sums)
+K3_AGREEMENT = {torch.float32: 0.9999, torch.bfloat16: 0.999}
+K3_TIE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # one GOP, the card in float32 against the CPU in float32: class maps flip
 # only at near ties; the fused feature differs by the order of the sums
 # through two BiSeNet forwards (observed ~3e-6 at max |fused| ~1.7)
 AGREEMENT = 0.999
 FUSED_TOL = 1e-3  # relative to max(1, max |fused|)
 TIMED_RUNS = 20
+PLAIN_RUNS_PSP = 5
+WARP_BLOCK = (4, 8)  # one motion vector per 4x8 block (the HEVC motion-field shape)
 
 
 def phase(name):
@@ -91,8 +107,8 @@ def build_phase():
     phase("build")
     t0 = time.perf_counter()
     _build.kernels()
-    print(f"built kernels ({_build.BUILD_INFO['route']} route) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    how = "compiled with nvcc" if _build.BUILD_INFO["compiled"] else "loaded, already built"
+    print(f"kernels {how} in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def check(name, dtype, got, want):
@@ -107,99 +123,282 @@ def check(name, dtype, got, want):
     return err
 
 
-def kernel_phase():
-    from arseg_tpu_torch.gop.pipeline import _resize_flow_planes
-    from arseg_tpu_torch.ops import creff_kernel, warp_kernel
+def _bound(s, dt):
+    t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = s["flops"] / PEAK_FLOPS[dt] * 1e3
+    s["bound_ms"] = max(t_bytes, t_ops)
+    s["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
+
+def _qkv_params(gen, c):
+    from arseg_tpu_torch.ops import creff_kernel
+
+    convs = [t for _ in range(3) for t in (
+        torch.randn(c, 1, 3, 3, device="cuda", generator=gen) / 3.0,
+        torch.randn(c, device="cuda", generator=gen) * 0.1)]
+    return creff_kernel.pack_qkv(*convs)
+
+
+def k1_case(gen, dt, n, hw, c, plain_runs):
+    """K1 at [n, *hw, c] against its plain version."""
+    from arseg_tpu_torch.ops import creff_kernel
+
+    lr_up = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
+    ref = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
+    taps, bias = _qkv_params(gen, c)
+    k1 = lambda: creff_kernel.creff_qkv_fused(lr_up, ref, taps, bias, 7, 7)
+    p1 = lambda: creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, 7, 7)
+    err = check("creff_qkv_fused", dt, k1(), p1())
+    # per element: three 3x3 depthwise convs (54), 49-tap logits (98) and
+    # weighting (98), the residual (1)
+    return dict(max_abs_err=err, ms=median_ms(k1), plain_ms=median_ms(p1, runs=plain_runs),
+                library_ms=None,
+                bytes=3 * lr_up.numel() * lr_up.element_size() + (taps.numel() + bias.numel()) * 4,
+                flops=lr_up.numel() * 251)
+
+
+def k2_case(gen, dt, n, hw, c, plain_runs):
+    """K2: one keyframe feature [1, *hw, c] warped to n frames; flows drawn
+    uniform(-16, 16) at 720x960 and resized to hw."""
+    from arseg_tpu_torch.gop.pipeline import _resize_flow_planes
+    from arseg_tpu_torch.ops import warp_kernel
+
+    src = torch.randn(1, *hw, c, device="cuda", generator=gen).to(dt)
+    fxf = torch.rand(n, H, W, device="cuda", generator=gen) * 32 - 16
+    fyf = torch.rand(n, H, W, device="cuda", generator=gen) * 32 - 16
+    fx, fy = _resize_flow_planes((fxf, fyf), hw)
+    k2 = lambda: warp_kernel.warp_bilinear(src, fx, fy)
+    p2 = lambda: warp_kernel.warp_bilinear_plain(src, fx, fy)
+    err = check("warp_bilinear", dt, k2(), p2())
+    far = check("warp_bilinear", dt, warp_kernel.warp_bilinear(src, fx * 40, fy * 40),
+                warp_kernel.warp_bilinear_plain(src, fx * 40, fy * 40))
+    print(f"warp_bilinear far out-of-image flows (x40) checked, max|d|={far:.3e}", flush=True)
+    # library yardstick: F.grid_sample on the same sampling grid (NCHW)
+    xs = torch.arange(hw[1], device="cuda", dtype=torch.float32)
+    ys = torch.arange(hw[0], device="cuda", dtype=torch.float32)[:, None]
+    grid = torch.stack([2.0 * (xs + fx) / (hw[1] - 1) - 1.0,
+                        2.0 * (ys + fy) / (hw[0] - 1) - 1.0], dim=-1).to(dt)
+    src_nchw = src.permute(0, 3, 1, 2).expand(n, -1, -1, -1)
+    lib2 = lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
+    gs = (lib2().permute(0, 2, 3, 1).float() - k2().float()).abs().max().item()
+    print(f"warp_bilinear vs F.grid_sample {dt}: max|d|={gs:.3e} (information)", flush=True)
+    out_numel = n * hw[0] * hw[1] * c
+    return dict(max_abs_err=err, ms=median_ms(k2), plain_ms=median_ms(p2, runs=plain_runs),
+                library_ms=median_ms(lib2),
+                bytes=src.numel() * src.element_size() + 2 * fx.numel() * 4
+                + out_numel * src.element_size(),
+                flops=out_numel * 7)
+
+
+def k3_case(gen, dt, n, hw, c, n_classes):
+    """K3 at [n, *hw, c] against its plain version: class-map agreement and
+    near ties at every disagreement."""
+    from arseg_tpu_torch.ops import creff_head_kernel, creff_kernel
+
+    lr_up = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
+    ref = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
+    taps, bias = _qkv_params(gen, c)
+    weight = torch.randn(n_classes, c, 1, 1, device="cuda", generator=gen) / c ** 0.5
+    fc_w, fc_b = creff_head_kernel.pack_head(
+        weight, torch.randn(n_classes, device="cuda", generator=gen) * 0.1, dt)
+    args = (lr_up, ref, taps, bias, fc_w, fc_b, 7, 7)
+    k3 = lambda: creff_head_kernel.creff_phase2_argmax(*args)
+    p3 = lambda: creff_head_kernel.creff_phase2_argmax_plain(*args)
+    got = k3()
+    # the plain version's logits, to find near ties where the maps differ
+    logits = creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, 7, 7).float() @ fc_w + fc_b
+    want = logits.argmax(dim=-1).to(torch.int32)
+    differ = got != want
+    agree = 1.0 - differ.float().mean().item()
+    top2 = logits[differ].topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).max().item() if top2.numel() else 0.0
+    tie_tol = K3_TIE[dt] * logits.abs().max().item()
+    del logits
+    ok = (agree >= K3_AGREEMENT[dt] and gap <= tie_tol and int(got.min()) >= 0
+          and int(got.max()) < n_classes)
+    print(f"creff_phase2_argmax {str(dt):14s} agreement={agree:.6f} (>= {K3_AGREEMENT[dt]}), "
+          f"{int(differ.sum())} pixels differ, largest top-two gap there {gap:.3e} "
+          f"(near tie <= {tie_tol:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"chip_smoke: creff_phase2_argmax disagrees with its plain version in {dt}")
+    elem_bytes = lr_up.element_size()
+    return dict(max_abs_err=float((got - want).abs().max().item()), agreement=agree,
+                ms=median_ms(k3), plain_ms=median_ms(p3, runs=PLAIN_RUNS_PSP), library_ms=None,
+                bytes=2 * lr_up.numel() * elem_bytes + got.numel() * 4
+                + (taps.numel() + bias.numel() + fc_w.numel() + fc_b.numel()) * 4,
+                # the module's 251 per element, and the 1x1 conv's multiply-adds
+                flops=lr_up.numel() * (251 + 2 * n_classes))
+
+
+def _block_flow(rng, n, h, w, lo, hi, jitter=0.0):
+    br, bc = WARP_BLOCK
+    fb = rng.uniform(lo, hi, (2, n, h // br, w // bc)).astype(np.float32)
+    f = np.repeat(np.repeat(fb, br, axis=2), bc, axis=3)
+    if jitter:
+        f = f + rng.uniform(-jitter, jitter, f.shape).astype(np.float32)
+    return f[0], f[1]
+
+
+def _scene_flow(rng, n, h, w, mag, objects=3):
+    """A pan plus a few rigidly moving rectangles, snapped to quarter-pel."""
+    fx = np.empty((n, h, w), np.float32)
+    fy = np.empty((n, h, w), np.float32)
+    for b in range(n):
+        fx[b] = rng.uniform(-mag, mag)
+        fy[b] = rng.uniform(-mag, mag)
+        for _ in range(objects):
+            y0, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            yh, xw = rng.randint(4, h // 2), rng.randint(4, w // 2)
+            fx[b, y0 : y0 + yh, x0 : x0 + xw] = rng.uniform(-mag, mag)
+            fy[b, y0 : y0 + yh, x0 : x0 + xw] = rng.uniform(-mag, mag)
+    return (np.round(fx * 4) / 4).astype(np.float32), (np.round(fy * 4) / 4).astype(np.float32)
+
+
+def warp_edge_cases(c, seed=0):
+    """name -> (src [1, h, w, c], fx [n, h, w], fy) float32 numpy arrays: the
+    flow cases of tests/test_pallas_warp.py and tests/test_pallas_warp2.py.
+    Block-coherent flows with and without subpixel jitter, corners far out
+    of the image, discontinuities inside motion blocks (window overflow),
+    per-pixel random flows (past the correction budget), scene flows, small
+    reach, and reach beyond one 128-wide tile."""
+    rng = np.random.RandomState(seed)
+    h, w = 32, 64
+
+    def src(hh=h, ww=w):
+        return rng.randn(1, hh, ww, c).astype(np.float32)
+
+    cases = {
+        "coherent": (src(), *_block_flow(rng, 2, h, w, -6, 6)),
+        "coherent_jitter": (src(), *_block_flow(rng, 2, h, w, -6, 6, jitter=0.45)),
+        "out_of_image": (src(), *_block_flow(rng, 1, h, w, -40, 40)),
+    }
+    fx, fy = _block_flow(rng, 1, h, w, -6, 6)
+    fx = fx.copy()
+    fx[:, 10:20, 13:40] += np.where(
+        (np.arange(27)[None, :] + np.arange(10)[:, None]) % 2 == 0, 12.0, -9.0
+    ).astype(np.float32)
+    cases["discontinuity"] = (src(), fx, fy)
+    cases["over_budget"] = (src(), *(rng.uniform(-16, 16, (1, h, w)).astype(np.float32)
+                                     for _ in range(2)))
+    cases["scene"] = (src(40, 48), *_scene_flow(rng, 2, 40, 48, 9.0))
+    cases["small_reach"] = (src(32, 40), *_scene_flow(rng, 1, 32, 40, 3.0))
+    cases["cross_tile"] = (src(48, 200), np.full((1, 48, 200), 140.25, np.float32),
+                           np.full((1, 48, 200), -20.5, np.float32))
+    cases["random_8"] = (src(24, 32), *(rng.uniform(-8, 8, (2, 24, 32)).astype(np.float32)
+                                        for _ in range(2)))
+    return cases
+
+
+def warp_edge_phase():
+    from arseg_tpu_torch.ops import warp_kernel
+
+    phase("K2 on the flow cases of tests/test_pallas_warp*.py")
+    worst = 0.0
+    for c in (64, 256):
+        for name, (src, fx, fy) in warp_edge_cases(c).items():
+            fxc, fyc = torch.from_numpy(fx).cuda(), torch.from_numpy(fy).cuda()
+            for dt in (torch.float32, torch.bfloat16):
+                s = torch.from_numpy(src).cuda().to(dt)
+                got = warp_kernel.warp_bilinear(s, fxc, fyc)
+                want = warp_kernel.warp_bilinear_plain(s, fxc, fyc)
+                err = (got.float() - want.float()).abs().max().item()
+                tol = TOL["warp_bilinear"][dt] * max(1.0, want.float().abs().max().item())
+                if not err <= tol:
+                    raise SystemExit(f"chip_smoke: warp_bilinear case {name} C={c} {dt}: "
+                                     f"max|d| {err:.3e} > {tol:.3e}")
+                worst = max(worst, err)
+    print(f"warp_bilinear: {len(warp_edge_cases(8))} cases x C in (64, 256) x (f32, bf16) ok, "
+          f"largest max|d| {worst:.3e}", flush=True)
+
+
+def kernel_phase():
     phase("kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     n = GOP - 1
     stats = {}
     for dt in (torch.float32, torch.bfloat16):
-        # K1 at [11, 90, 120, 256]
-        lr_up = torch.randn(n, *FEAT_HW, C, device="cuda", generator=gen).to(dt)
-        ref = torch.randn(n, *FEAT_HW, C, device="cuda", generator=gen).to(dt)
-        convs = [t for _ in range(3) for t in (
-            torch.randn(C, 1, 3, 3, device="cuda", generator=gen) / 3.0,
-            torch.randn(C, device="cuda", generator=gen) * 0.1)]
-        taps, bias = creff_kernel.pack_qkv(*convs)
-        k1 = lambda: creff_kernel.creff_qkv_fused(lr_up, ref, taps, bias, 7, 7)
-        p1 = lambda: creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, 7, 7)
-        err1 = check("creff_qkv_fused", dt, k1(), p1())
-        bytes1 = 3 * lr_up.numel() * lr_up.element_size() + (taps.numel() + bias.numel()) * 4
-        # per element: three 3x3 depthwise convs (54), 49-tap logits (98) and
-        # weighting (98), the residual (1)
-        flops1 = lr_up.numel() * 251
-        stats[("creff_qkv_fused", dt)] = dict(
-            max_abs_err=err1, ms=median_ms(k1), plain_ms=median_ms(p1), library_ms=None,
-            bytes=bytes1, flops=flops1)
-
-        # K2: one keyframe feature warped to 11 frames; flows drawn at 720x960
-        src = torch.randn(1, *FEAT_HW, C, device="cuda", generator=gen).to(dt)
-        fxf = torch.rand(n, H, W, device="cuda", generator=gen) * 32 - 16
-        fyf = torch.rand(n, H, W, device="cuda", generator=gen) * 32 - 16
-        fx, fy = _resize_flow_planes((fxf, fyf), FEAT_HW)
-        k2 = lambda: warp_kernel.warp_bilinear(src, fx, fy)
-        p2 = lambda: warp_kernel.warp_bilinear_plain(src, fx, fy)
-        err2 = check("warp_bilinear", dt, k2(), p2())
-        far = check("warp_bilinear", dt, warp_kernel.warp_bilinear(src, fx * 40, fy * 40),
-                    warp_kernel.warp_bilinear_plain(src, fx * 40, fy * 40))
-        print(f"warp_bilinear far out-of-image flows (x40) checked, max|d|={far:.3e}", flush=True)
-        # library yardstick: F.grid_sample on the same sampling grid (NCHW)
-        xs = torch.arange(FEAT_HW[1], device="cuda", dtype=torch.float32)
-        ys = torch.arange(FEAT_HW[0], device="cuda", dtype=torch.float32)[:, None]
-        grid = torch.stack([2.0 * (xs + fx) / (FEAT_HW[1] - 1) - 1.0,
-                            2.0 * (ys + fy) / (FEAT_HW[0] - 1) - 1.0], dim=-1).to(dt)
-        src_nchw = src.permute(0, 3, 1, 2).expand(n, -1, -1, -1)
-        lib2 = lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
-                                     align_corners=False)
-        gs = (lib2().permute(0, 2, 3, 1).float() - k2().float()).abs().max().item()
-        print(f"warp_bilinear vs F.grid_sample {dt}: max|d|={gs:.3e} (information)", flush=True)
-        bytes2 = (src.numel() * src.element_size() + 2 * fx.numel() * 4
-                  + n * FEAT_HW[0] * FEAT_HW[1] * C * src.element_size())
-        stats[("warp_bilinear", dt)] = dict(
-            max_abs_err=err2, ms=median_ms(k2), plain_ms=median_ms(p2),
-            library_ms=median_ms(lib2), bytes=bytes2,
-            flops=n * FEAT_HW[0] * FEAT_HW[1] * C * 7)
-    for (name, dt), s in stats.items():
-        t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = s["flops"] / PEAK_FLOPS[dt] * 1e3
-        s["bound_ms"] = max(t_bytes, t_ops)
-        s["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{name} {str(dt):14s} ms={s['ms']:.4f} plain_ms={s['plain_ms']:.4f} "
-              f"library_ms={s['library_ms']} bound_ms={s['bound_ms']:.4f} ({s['bound_by']})",
-              flush=True)
+        print(f"-- camvid-bise18 shapes, {dt}", flush=True)
+        stats[("creff_qkv_fused", "bise18", dt)] = k1_case(gen, dt, n, FEAT_HW, C, TIMED_RUNS)
+        stats[("warp_bilinear", "bise18", dt)] = k2_case(gen, dt, n, FEAT_HW, C, TIMED_RUNS)
+        print(f"-- camvid-psp18 V1 shapes, {dt}", flush=True)
+        stats[("creff_phase2_argmax", "psp18", dt)] = k3_case(gen, dt, n, (H, W), C_PSP,
+                                                              N_CLASSES)
+        stats[("creff_qkv_fused", "psp18", dt)] = k1_case(gen, dt, n, (H, W), C_PSP,
+                                                          PLAIN_RUNS_PSP)
+        stats[("warp_bilinear", "psp18", dt)] = k2_case(gen, dt, n, (H, W), C_PSP,
+                                                        PLAIN_RUNS_PSP)
+        torch.cuda.empty_cache()
+    for (name, shape, dt), s in stats.items():
+        _bound(s, dt)
+        lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
+        print(f"{name} {shape} {str(dt):14s} ms={s['ms']:.4f} plain_ms={s['plain_ms']:.4f} "
+              f"library_ms={lib} bound_ms={s['bound_ms']:.4f} ({s['bound_by']})", flush=True)
+    warp_edge_phase()
     return stats
 
 
-def make_models():
-    """camvid-bise18 HR (no fuse) and LR (fuse) at full width on the CPU,
-    weights from seeded generators, BN statistics randomised."""
+def make_models(backend="camvid-bise18", fuse_version=1):
+    """HR and LR models at full width on the CPU, weights from seeded
+    generators, BN statistics randomised. camvid-bise18: HR plain, LR fused;
+    camvid-psp18 V1: HR plain (V0), LR V1; V2: both V2."""
     from arseg_tpu_torch.models import build_model
     from arseg_tpu_torch.nn.init import randomize_bn_
 
+    kw = {} if backend == "camvid-bise18" else dict(fuse_version=fuse_version)
+    hr_fuse = backend == "camvid-psp18" and fuse_version == 2
     models = []
-    for seed, fuse in ((0, False), (1, True)):
-        m = build_model("camvid-bise18", fuse=fuse, seed=seed, device="cpu")
+    for seed, fuse in ((0, hr_fuse), (1, True)):
+        m = build_model(backend, fuse=fuse, seed=seed, device="cpu", **kw)
         randomize_bn_(m, torch.Generator().manual_seed(100 + seed))
         models.append(m)
     return models
 
 
-def make_clip(gops):
-    """uint8 keyframes [K,H,W,3] and frames [K,G-1,H,W,3], and flow planes
-    [K,G-1,H,W] drawn uniform(-16, 16) as bench.py draws them."""
+def make_clip(gops, frames=GOP - 1):
+    """uint8 keyframes [K,H,W,3] and frames [K,frames,H,W,3], and flow planes
+    [K,frames,H,W] drawn uniform(-16, 16) as bench.py draws them."""
     rng = np.random.RandomState(0)
     kfs = torch.from_numpy(rng.randint(0, 256, (gops, H, W, 3), dtype=np.uint8))
-    frs = torch.from_numpy(rng.randint(0, 256, (gops, GOP - 1, H, W, 3), dtype=np.uint8))
-    fxs = torch.from_numpy(rng.uniform(-16, 16, (gops, GOP - 1, H, W)).astype(np.float32))
-    fys = torch.from_numpy(rng.uniform(-16, 16, (gops, GOP - 1, H, W)).astype(np.float32))
+    frs = torch.from_numpy(rng.randint(0, 256, (gops, frames, H, W, 3), dtype=np.uint8))
+    fxs = torch.from_numpy(rng.uniform(-16, 16, (gops, frames, H, W)).astype(np.float32))
+    fys = torch.from_numpy(rng.uniform(-16, 16, (gops, frames, H, W)).astype(np.float32))
     return kfs, frs, fxs, fys
+
+
+def run_clip(pipe, clip, name):
+    """Warm-up GOP, then scan_step over the clip with every launch count set
+    to 0 just before and read just after. Returns (maps, launches)."""
+    from arseg_tpu_torch.ops import _build
+
+    dev = [x.cuda() for x in clip]
+    pipe.gop_step(dev[0][:1], dev[1][0], (dev[2][0], dev[3][0]))  # warm-up
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    preds = pipe.scan_step(*dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    gops = dev[0].shape[0]
+    print(f"{name} scan_step: {gops} GOPs in {dt * 1e3:.2f} ms: {dt * 1e3 / gops:.2f} ms/GOP, "
+          f"{gops * GOP / dt:.1f} frames/s; launches {launches}", flush=True)
+    if tuple(preds.shape) != (gops, GOP, H, W) or preds.dtype != torch.int32:
+        raise SystemExit(f"chip_smoke: bad output {tuple(preds.shape)} {preds.dtype}")
+    if int(preds.min()) < 0 or int(preds.max()) >= N_CLASSES:
+        raise SystemExit("chip_smoke: class index out of range")
+    return preds, launches
+
+
+def expect_launches(launches, expected, name):
+    for kernel, count in expected.items():
+        if launches.get(kernel, 0) != count:
+            raise SystemExit(f"chip_smoke: {kernel} launched {launches.get(kernel, 0)} times on "
+                             f"the {name} path, expected {count}")
 
 
 def pipeline_phase():
     from arseg_tpu_torch.gop import ARPipeline
-    from arseg_tpu_torch.ops import _build
 
     phase("pipeline: camvid-bise18 AR 0.5x, GOP 12, 720x960")
     models = make_models()
@@ -207,26 +406,9 @@ def pipeline_phase():
     norm = (CAMVID_MEAN, CAMVID_STD)
 
     pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm, device="cuda")
-    dev = [x.cuda() for x in (kfs, frs, fxs, fys)]
-    pipe.gop_step(dev[0][:1], dev[1][0], (dev[2][0], dev[3][0]))  # warm-up
-    torch.cuda.synchronize()
-
-    _build.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    preds = pipe.scan_step(*dev)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    print(f"scan_step: {CLIP_GOPS} GOPs in {dt * 1e3:.2f} ms: {dt * 1e3 / CLIP_GOPS:.2f} ms/GOP, "
-          f"{CLIP_GOPS * GOP / dt:.1f} frames/s; launches {launches}", flush=True)
-    if tuple(preds.shape) != (CLIP_GOPS, GOP, H, W) or preds.dtype != torch.int32:
-        raise SystemExit(f"chip_smoke: bad output {tuple(preds.shape)} {preds.dtype}")
-    if int(preds.min()) < 0 or int(preds.max()) >= 12:
-        raise SystemExit("chip_smoke: class index out of range")
-    for name in ("creff_qkv_fused", "warp_bilinear"):
-        if launches.get(name, 0) != CLIP_GOPS:
-            raise SystemExit(f"chip_smoke: {name} launched {launches.get(name, 0)} times on the "
-                             f"main path, expected {CLIP_GOPS} (one per GOP)")
+    preds, launches = run_clip(pipe, (kfs, frs, fxs, fys), "camvid-bise18")
+    expect_launches(launches, {"creff_qkv_fused": CLIP_GOPS, "warp_bilinear": CLIP_GOPS,
+                               "creff_phase2_argmax": 0}, "camvid-bise18")
 
     # one GOP: the card in float32 against the CPU (plain versions) in float32
     args = (kfs[:1], frs[0], (fxs[0], fys[0]))
@@ -248,29 +430,99 @@ def pipeline_phase():
     return launches
 
 
+def psp18_phase():
+    from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.ops import _build
+
+    phase("pipeline: camvid-psp18 V1 AR 0.5x, GOP 12, 720x960, bf16")
+    norm = (CAMVID_MEAN, CAMVID_STD)
+    models = make_models("camvid-psp18", 1)
+    pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm, device="cuda")
+    preds, launches = run_clip(pipe, make_clip(CLIP_GOPS), "camvid-psp18 V1")
+    expect_launches(launches, {"creff_phase2_argmax": CLIP_GOPS, "warp_bilinear": CLIP_GOPS,
+                               "creff_qkv_fused": 0}, "camvid-psp18 V1")
+    del pipe, preds
+    torch.cuda.empty_cache()
+
+    # a short GOP (keyframe + 2 frames): the card in float32 against the CPU
+    kfs, frs, fxs, fys = make_clip(1, frames=2)
+    args = (kfs, frs[0], (fxs[0], fys[0]))
+    p_card = ARPipeline(*models, scale=SCALE, normalize=norm, device="cuda").gop_step(*args)
+    t0 = time.perf_counter()
+    p_cpu = ARPipeline(*models, scale=SCALE, normalize=norm, device="cpu").gop_step(*args)
+    agree = (p_card.cpu() == p_cpu).float().mean().item()
+    print(f"camvid-psp18 V1 card f32 vs CPU f32 (keyframe + 2 frames, CPU "
+          f"{time.perf_counter() - t0:.1f} s): class-map agreement {agree:.6f} (>= {AGREEMENT})",
+          flush=True)
+    if not agree >= AGREEMENT:
+        raise SystemExit("chip_smoke: the card's float32 psp18 GOP disagrees with the CPU")
+    torch.cuda.empty_cache()
+
+    phase("pipeline: camvid-psp18 V2, one GOP on the card, bf16")
+    v2 = ARPipeline(*make_models("camvid-psp18", 2), scale=SCALE, dtype=torch.bfloat16,
+                    normalize=norm, device="cuda")
+    kfs, frs, fxs, fys = (x.cuda() for x in make_clip(1))
+    _build.LAUNCHES.clear()
+    out = v2.gop_step(kfs, frs[0], (fxs[0], fys[0]))
+    torch.cuda.synchronize()
+    v2_launches = dict(_build.LAUNCHES)
+    print(f"camvid-psp18 V2 GOP: {tuple(out.shape)} {out.dtype}, classes "
+          f"{int(out.min())}..{int(out.max())}; launches {v2_launches}", flush=True)
+    if tuple(out.shape) != (GOP, H, W) or out.dtype != torch.int32:
+        raise SystemExit(f"chip_smoke: bad V2 output {tuple(out.shape)} {out.dtype}")
+    if int(out.min()) < 0 or int(out.max()) >= N_CLASSES:
+        raise SystemExit("chip_smoke: V2 class index out of range")
+    expect_launches(v2_launches, {"creff_qkv_fused": 1, "warp_bilinear": 1,
+                                  "creff_phase2_argmax": 0}, "camvid-psp18 V2")
+    return launches
+
+
+def timed(fn, name):
+    t0 = time.perf_counter()
+    out = fn()
+    print(f"-- phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
-    smi = device_phase()
+    t_start = time.perf_counter()
+    smi = timed(device_phase, "device")
     from arseg_tpu_torch import set_f32_parity_mode
 
     set_f32_parity_mode()  # float32 convolutions in full float32, not TF32
-    build_phase()
-    stats = kernel_phase()
-    launches = pipeline_phase()
+    timed(build_phase, "build")
+    stats = timed(kernel_phase, "kernels")
+    paths = {"camvid-bise18": timed(pipeline_phase, "camvid-bise18 pipeline"),
+             "camvid-psp18 V1": timed(psp18_phase, "camvid-psp18 pipeline")}
+    kernels = []
+    # each kernel at the shapes of the main path that runs it, in bfloat16
     sources = {
         "creff_qkv_fused": ("arseg_tpu_torch/csrc/creff_qkv_fused.cu",
-                            "arseg_tpu/ops/pallas_creff.py:368"),
+                            "arseg_tpu/ops/pallas_creff.py:368", "bise18"),
         "warp_bilinear": ("arseg_tpu_torch/csrc/warp_bilinear.cu",
-                          "arseg_tpu/ops/pallas_warp.py:115"),
+                          "arseg_tpu/ops/pallas_warp.py:115", "bise18"),
+        "creff_phase2_argmax": ("arseg_tpu_torch/csrc/creff_phase2_argmax.cu",
+                                "arseg_tpu/ops/pallas_creff.py:485", "psp18"),
     }
-    kernels = []
-    for name, (source, replaces) in sources.items():
-        s = stats[(name, torch.bfloat16)]  # the main path runs in bfloat16
-        kernels.append({
+    for name, (source, replaces, shape) in sources.items():
+        s = stats[(name, shape, torch.bfloat16)]
+        by_path = {p: launches.get(name, 0) for p, launches in paths.items()}
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches.get(name, 0), "max_abs_err": s["max_abs_err"],
+            "launches": sum(by_path.values()), "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-        })
+            "shape": shape, "launches_by_path": by_path,
+        }
+        other = stats.get((name, "psp18" if shape == "bise18" else "bise18", torch.bfloat16))
+        if other is not None:
+            entry["psp18" if shape == "bise18" else "bise18"] = {
+                k: other[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "max_abs_err")}
+        if "agreement" in s:
+            entry["agreement"] = s["agreement"]
+        kernels.append(entry)
+    print(f"-- total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

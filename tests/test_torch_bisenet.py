@@ -109,7 +109,7 @@ def test_state_dict_from_jax_equals_export_state_dict(backend):
 
 
 def test_registry_refuses_unported_backends():
-    for backend in ("camvid-psp18", "cityscapes-psp18"):
+    for backend in ("cityscapes-psp18",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(backend, device="cpu")
     with pytest.raises(KeyError):

@@ -136,6 +136,25 @@ def test_warp_feature_matches_pallas_blocked_interpret(jitter, lo, hi):
     np.testing.assert_allclose(got, want, **WARP_TOL)
 
 
+@pytest.mark.parametrize("name", ["coherent", "coherent_jitter", "out_of_image", "discontinuity",
+                                  "over_budget", "scene", "small_reach", "cross_tile", "random_8"])
+def test_warp_plain_matches_jax_on_warp_kernel_cases(name):
+    """K2's plain version against the JAX warp on the flow cases of
+    tests/test_pallas_warp*.py (chip_smoke.py holds the kernel to the plain
+    version on the same cases on the card): motion discontinuities inside
+    blocks, per-pixel random flows past the TPU kernel's correction budget,
+    scene flows and reach beyond one tile, beside the cases above."""
+    from chip_smoke import warp_edge_cases
+
+    cases = warp_edge_cases(16)
+    assert name in cases
+    feat, fx, fy = cases[name]
+    rep = np.repeat(feat, fx.shape[0], axis=0)
+    want = np.asarray(jwarp.warp_feature(jnp.asarray(rep), (jnp.asarray(fx), jnp.asarray(fy))))
+    got = warp_kernel.warp_bilinear_plain(t(feat), t(fx), t(fy)).numpy()
+    np.testing.assert_allclose(got, want, **WARP_TOL)
+
+
 # ---------------------------------------------------------------- CReFF
 
 
@@ -242,6 +261,7 @@ def test_cpu_tensors_take_plain_versions_without_launch():
 # ---------------------------------------------------------------- card only
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 def test_warp_kernel_matches_plain_on_card(dtype, tol):
     needs_card()
@@ -254,6 +274,7 @@ def test_warp_kernel_matches_plain_on_card(dtype, tol):
         assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 6e-2)])
 def test_creff_kernel_matches_plain_on_card(dtype, tol):
     needs_card()

@@ -1,8 +1,9 @@
-"""Where the time of one camvid-bise18 AR GOP goes on the card (PyTorch/CUDA
-port): the configuration of chip_smoke.py's pipeline phase (720x960, GOP 12,
-LR 0.5x, bf16, full width, seeded random weights, uint8 frames).
+"""Where the time of one AR GOP goes on the card (PyTorch/CUDA port), in
+chip_smoke.py's pipeline configuration (720x960, GOP 12, LR 0.5x, bf16, full
+width, seeded random weights, uint8 frames):
 
-    python3 tools_torch_profile_gop.py
+    python3 tools_torch_profile_gop.py                                   # camvid-bise18
+    python3 tools_torch_profile_gop.py --backend camvid-psp18 --fuse_version 1
 
 Prints the wall time per GOP (host clock around synchronised work, no
 profiler), the device's kernel time per GOP and its idle share against that
@@ -10,12 +11,14 @@ wall time, the kernel time and host time of each pipeline stage (the
 ``gop.*`` record_function spans of arseg_tpu_torch/gop/pipeline.py) and the
 kernels by device time, from torch.profiler over a steady window after two
 warm-up GOPs. The host clock varies from clip to clip (the host's cores are
-shared), so the wall time is the median of several clips. K2 is launched
-through its binding, outside any PyTorch op, so its time shows on its kernel
-line and not under the ``gop.warp`` span. Writes the chrome trace to
-chiprun_out/torch_gop_trace.json.
+shared), so the wall time is the median of several clips. The port's
+kernels are launched through their binding, outside any PyTorch op, so
+their time shows on their kernel lines and not under the ``gop.*`` span
+that launched them. Writes the chrome trace to
+chiprun_out/torch_gop_trace_<backend>.json.
 """
 
+import argparse
 import os
 import time
 
@@ -26,9 +29,19 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 
 WALL_REPEATS = 5
+# K1 and K3 are one kernel template (creff_module.cuh) with the epilogues
+# StoreFused (K1) and ArgmaxHead (K3); K2 is warp_bilinear_kernel
+PORT_KERNELS = ("module_kernel", "warp_bilinear_kernel")
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--backend", default="camvid-bise18",
+                    choices=["camvid-bise18", "camvid-psp18"])
+    ap.add_argument("--fuse_version", type=int, default=1, choices=[1, 2],
+                    help="camvid-psp18 only: 1 fuses at full resolution (K3 head), 2 at the "
+                         "backbone feature")
+    args = ap.parse_args()
     gops = cs.CLIP_GOPS
     if not torch.cuda.is_available():
         raise SystemExit("tools_torch_profile_gop: no CUDA device")
@@ -36,8 +49,11 @@ def main():
 
     cs.device_phase()
     cs.build_phase()
-    pipe = ARPipeline(*cs.make_models(), scale=cs.SCALE, dtype=torch.bfloat16,
-                      normalize=(cs.CAMVID_MEAN, cs.CAMVID_STD), device="cuda")
+    print(f"{args.backend}" + (f" V{args.fuse_version}" if args.backend == "camvid-psp18" else ""),
+          flush=True)
+    pipe = ARPipeline(*cs.make_models(args.backend, args.fuse_version), scale=cs.SCALE,
+                      dtype=torch.bfloat16, normalize=(cs.CAMVID_MEAN, cs.CAMVID_STD),
+                      device="cuda")
     kfs, frs, fxs, fys = (x.cuda() for x in cs.make_clip(gops))
     for _ in range(2):
         pipe.gop_step(kfs[:1], frs[0], (fxs[0], fys[0]))
@@ -66,9 +82,8 @@ def main():
     print(f"profiled wall {wall_prof:.3f} ms/GOP; device kernels {busy:.3f} ms/GOP; "
           f"idle share against the unprofiled median wall {1 - busy / wall:.3f}", flush=True)
     for e in events:
-        if e.device_type == cuda and ("creff_qkv_fused_kernel" in e.key
-                                      or "warp_bilinear_kernel" in e.key):
-            print(f"  kernel {e.key[:60]}: {e.self_device_time_total / 1e3 / gops:.3f} "
+        if e.device_type == cuda and any(k in e.key for k in PORT_KERNELS):
+            print(f"  kernel {e.key[:110]}: {e.self_device_time_total / 1e3 / gops:.3f} "
                   f"ms/GOP, {e.count // gops} launch(es)/GOP", flush=True)
     print("stage: device kernel ms/GOP, host ms/GOP (profiled):", flush=True)
     for e in sorted((e for e in events if e.device_type == cpu and e.key.startswith("gop.")),
@@ -77,7 +92,7 @@ def main():
               f"{e.cpu_time_total / 1e3 / gops:8.3f}", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=25), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace("chiprun_out/torch_gop_trace.json")
+    prof.export_chrome_trace(f"chiprun_out/torch_gop_trace_{args.backend}.json")
 
 
 if __name__ == "__main__":
