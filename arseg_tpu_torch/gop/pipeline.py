@@ -33,7 +33,8 @@ def _resize_flow_planes(flow_planes, feat_hw):
     then the magnitude rescale feat_h / Hf (exact for power-of-two scales,
     so the order against the resize does not matter there)."""
     fx, fy = flow_planes
-    s = torch.tensor(feat_hw[0] / fx.shape[-2], dtype=torch.float32, device=fx.device)
+    # a host scalar: a tensor copied to the device would wait for its queue
+    s = torch.tensor(feat_hw[0] / fx.shape[-2], dtype=torch.float32)
     fx = _resize_plane_bilinear(fx.float(), feat_hw, True) * s
     fy = _resize_plane_bilinear(fy.float(), feat_hw, True) * s
     return fx, fy

@@ -4,7 +4,10 @@ Plain forms of ``arseg_tpu/ops/resize.py``: bilinear (``align_corners``
 True and False), nearest, and the adaptive pools of the PSP head. The index
 tables (``_linear_gather``, ``_linear_matrix``, ``_nearest_index``,
 ``_adaptive_avg_matrix``) are copies of the JAX package's, so the flow-plane
-resize in ``ops/warp.py`` and the pools repeat its arithmetic.
+resize in ``ops/warp.py`` and the pools repeat its arithmetic. Their tensor
+forms are copied to a device once: a copy from pageable host memory waits
+for the device's queue, so a copy per call would stall the host behind
+every kernel queued before it.
 """
 
 from functools import lru_cache
@@ -65,14 +68,34 @@ def _adaptive_avg_matrix(in_size: int, out_size: int):
     return m
 
 
+@lru_cache(maxsize=None)
+def _linear_gather_on(in_size: int, out_size: int, align_corners: bool, device, dtype):
+    """``_linear_gather``'s tables as tensors on `device`, copied once."""
+    i0, i1, w = _linear_gather(in_size, out_size, align_corners)
+    return (torch.from_numpy(i0).to(device), torch.from_numpy(i1).to(device),
+            torch.from_numpy(w).to(device, dtype))
+
+
+@lru_cache(maxsize=None)
+def _nearest_index_on(in_size: int, out_size: int, device):
+    """``_nearest_index`` as a tensor on `device`, copied once."""
+    return torch.from_numpy(_nearest_index(in_size, out_size)).to(device)
+
+
+@lru_cache(maxsize=None)
+def _adaptive_avg_matrix_on(in_size: int, out_size: int, device):
+    """``_adaptive_avg_matrix`` as a tensor on `device`, copied once."""
+    return torch.from_numpy(_adaptive_avg_matrix(in_size, out_size)).to(device)
+
+
 def _lerp_axis(x, in_size, out_size, align_corners, axis):
     """1-D linear resample along `axis`: two gathers and (1-w)*x0 + w*x1."""
-    i0, i1, w = _linear_gather(in_size, out_size, align_corners)
-    x0 = x.index_select(axis, torch.from_numpy(i0).to(x.device))
-    x1 = x.index_select(axis, torch.from_numpy(i1).to(x.device))
+    i0, i1, w = _linear_gather_on(in_size, out_size, align_corners, x.device, x.dtype)
+    x0 = x.index_select(axis, i0)
+    x1 = x.index_select(axis, i1)
     shape = [1] * x.ndim
     shape[axis] = out_size
-    wb = torch.from_numpy(w).to(x.device, x.dtype).reshape(shape)
+    wb = w.reshape(shape)
     return x0 * (1 - wb) + x1 * wb
 
 
@@ -110,11 +133,13 @@ def resize_nearest(x, out_hw):
 
 def adaptive_avg_pool(x, out_hw):
     """AdaptiveAvgPool2d of an NHWC (any leading batch) tensor: two
-    averaging-matrix products in float32 (H, then W), cast back."""
+    averaging-matrix products in float32 (H, then W), cast back. On the H100
+    at the PSP head's channels_last bf16 shapes this is far quicker than
+    F.adaptive_avg_pool2d, whose kernel took about 1 ms a call there."""
     h, w = x.shape[-3], x.shape[-2]
     oh, ow = int(out_hw[0]), int(out_hw[1])
-    mh = torch.from_numpy(_adaptive_avg_matrix(h, oh)).to(x.device)
-    mw = torch.from_numpy(_adaptive_avg_matrix(w, ow)).to(x.device)
+    mh = _adaptive_avg_matrix_on(h, oh, x.device)
+    mw = _adaptive_avg_matrix_on(w, ow, x.device)
     y = torch.einsum("ph,...hwc->...pwc", mh, x.float())
     return torch.einsum("qw,...pwc->...pqc", mw, y).to(x.dtype)
 

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from arseg_tpu_torch.ops import warp_kernel
-from arseg_tpu_torch.ops.resize import _lerp_axis, _nearest_index
+from arseg_tpu_torch.ops.resize import _lerp_axis, _nearest_index_on
 
 
 def pad_for_warp(feature):
@@ -56,8 +56,8 @@ def _resize_plane_nearest(x, out_hw):
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (h, w) == (oh, ow):
         return x
-    y = x.index_select(-2, torch.from_numpy(_nearest_index(h, oh)).to(x.device))
-    return y.index_select(-1, torch.from_numpy(_nearest_index(w, ow)).to(x.device))
+    y = x.index_select(-2, _nearest_index_on(h, oh, x.device))
+    return y.index_select(-1, _nearest_index_on(w, ow, x.device))
 
 
 def scale_and_resize_flow(flow, feat_hw, mode: str, split: bool = False):
