@@ -5,8 +5,10 @@ other frame of the GOP runs the 0.5x LR branch, and the keyframe feature is
 MV-warped to each frame and merged by CReFF local attention. The
 hand-written CUDA kernels live in ``csrc/``: ``creff_qkv_fused.cu`` (K1,
 fused CReFF module), ``creff_phase2_argmax.cu`` (K3, the module + 1x1 conv +
-argmax head of camvid-psp18 V1; both on ``creff_module.cuh``) and
-``warp_bilinear.cu`` (K2, MV warp).
+argmax head of camvid-psp18 V1), ``creff_phase2_upsample_argmax.cu`` (K5,
+the module + 1x1 conv + x8 bilinear + argmax head of BiSeNet; K1, K3 and
+K5 on ``creff_module.cuh``), ``creff_attention.cu`` (K4, windowed attention
+of the other local fusion variants) and ``warp_bilinear.cu`` (K2, MV warp).
 
 Layout: models are ``nn.Module``s in NCHW (channels_last in memory) with the
 reference checkpoint's state-dict key names; the public ops

@@ -20,12 +20,18 @@
 // float32.
 //
 // An epilogue is a struct with
+//   static constexpr int HALO;
 //   __device__ void chunk(int64_t pixel, int c0, const float f[CC]);
 //   __device__ void finish(int64_t pixel, bool inside);
 // `pixel` is the flat (image, row, col) index of the thread's output pixel;
 // chunk() is called only for pixels inside the image, once per channel
-// chunk in order; finish() once per thread after the last chunk. Each
-// thread owns a copy of the epilogue, so its members live in registers.
+// chunk in order; finish() once per thread after the last chunk, by every
+// thread of the block (so it may synchronise the block). Each thread owns
+// a copy of the epilogue, so its members live in registers. With HALO = 0
+// the tiles partition the image; with HALO = 1 they overlap by one pixel
+// on each side: a block's TH x TW tile starts one row and one column
+// before its (TH - 2) x (TW - 2) interior, and pixels outside the image
+// arrive with inside = false.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -119,14 +125,16 @@ __device__ void dw_kv(float* kv, const float* r, const float* __restrict__ taps,
   }
 }
 
-// Grid: (ceil(w / TW), ceil(h / TH), n); TH * TW threads; dynamic shared
-// memory Geom<K>::SMEM_FLOATS floats.
+// Grid: (ceil(w / SW), ceil(h / SH), n) with SW = TW - 2 HALO and
+// SH = TH - 2 HALO; TH * TW threads; dynamic shared memory
+// Geom<K>::SMEM_FLOATS floats.
 template <typename T, int K, class Epi>
 __global__ void __launch_bounds__(TH* TW)
     module_kernel(const T* __restrict__ lr, const T* __restrict__ ref,
                   const float* __restrict__ taps, const float* __restrict__ bias, int h, int w,
                   int c, Epi epi_arg) {
   using G = Geom<K>;
+  constexpr int HALO = Epi::HALO;
   Epi epi = epi_arg;  // this thread's own epilogue state
   extern __shared__ float smem[];
   float* r_s = smem;               // [CC][RS] ref halo
@@ -135,8 +143,8 @@ __global__ void __launch_bounds__(TH* TW)
 
   const int py = threadIdx.x / TW;
   const int px = threadIdx.x % TW;
-  const int y0 = blockIdx.y * TH;
-  const int x0 = blockIdx.x * TW;
+  const int y0 = blockIdx.y * (TH - 2 * HALO) - HALO;
+  const int x0 = blockIdx.x * (TW - 2 * HALO) - HALO;
   const int64_t plane = static_cast<int64_t>(h) * w * c;
   const T* lr_img = lr + blockIdx.z * plane;
   const T* ref_img = ref + blockIdx.z * plane;
@@ -198,7 +206,7 @@ __global__ void __launch_bounds__(TH* TW)
   // ---- pass 2: p . v + residual -> epilogue ------------------------------
   const int gy = y0 + py;
   const int gx = x0 + px;
-  const bool inside = gy < h && gx < w;
+  const bool inside = gy >= 0 && gx >= 0 && gy < h && gx < w;
   const int64_t pixel = (static_cast<int64_t>(blockIdx.z) * h + gy) * w + gx;
   for (int c0 = 0; c0 < c; c0 += CC) {
     __syncthreads();
@@ -238,7 +246,8 @@ int launch(const void* lr, const void* ref, const float* taps, const float* bias
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
+  constexpr int SH = TH - 2 * Epi::HALO, SW = TW - 2 * Epi::HALO;  // tile strides
+  const dim3 grid((w + SW - 1) / SW, (h + SH - 1) / SH, n);
   module_kernel<T, K, Epi><<<grid, TH * TW, smem, stream>>>(
       static_cast<const T*>(lr), static_cast<const T*>(ref), taps, bias, h, w, c, epi);
   return static_cast<int>(cudaGetLastError());

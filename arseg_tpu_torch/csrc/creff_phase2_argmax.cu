@@ -33,6 +33,7 @@ constexpr int MAX_CLASSES = 19;  // CamVid 12, Cityscapes 19
 
 template <typename T>
 struct ArgmaxHead {
+  static constexpr int HALO = 0;
   int32_t* out;         // [n, h, w]
   const float* fc_w;    // [c, n_classes]
   const float* fc_b;    // [n_classes]

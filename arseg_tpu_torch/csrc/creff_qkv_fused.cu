@@ -22,6 +22,7 @@ namespace {
 
 template <typename T>
 struct StoreFused {
+  static constexpr int HALO = 0;
   T* out;  // [n, h, w, c]
   int c;
 

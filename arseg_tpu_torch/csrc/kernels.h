@@ -31,6 +31,27 @@ int arseg_creff_phase2_argmax(int32_t* out, const void* lr_up, const void* ref,
                               int w, int c, int n_classes, int kh, int kw,
                               int dtype, void* stream);
 
+// out = softmax(similar(q, k)) . v over a kh x kw window: logits summed in
+// float32, p rounded to the input type, float32 window sum, one final
+// rounding; window positions outside the image give logit 0 and value 0.
+// q, k, v, out: [n, h, w, c]. c % 16 == 0; kh == kw in {3, 5, 7}.
+int arseg_creff_attention(void* out, const void* q, const void* k,
+                          const void* v, int n, int h, int w, int c, int kh,
+                          int kw, int dtype, void* stream);
+
+// out[n,Y,X] = argmax_k(up8(round(fused . fc_w))[n,Y,X,k] + fc_b[k]), fused
+// as in arseg_creff_qkv_fused (float32, not rounded); up8 is the x8
+// bilinear align_corners=False resize, columns first (rounded to the input
+// type), then rows (float32). Lowest index on ties. fc_w: [c][n_classes]
+// float32 holding values of the input type, fc_b: [n_classes] float32;
+// out: [n, 8h, 8w] int32. 1 <= n_classes <= 19.
+int arseg_creff_phase2_upsample_argmax(int32_t* out, const void* lr_up,
+                                       const void* ref, const float* taps,
+                                       const float* bias, const float* fc_w,
+                                       const float* fc_b, int n, int h, int w,
+                                       int c, int n_classes, int kh, int kw,
+                                       int dtype, void* stream);
+
 // out[b] = bilinear zero-padding sample of src[ns == 1 ? 0 : b] at
 // (x + fx, y + fy), grid_sample semantics. src: [ns, h, w, c];
 // fx, fy: [n, h, w] float32; out: [n, h, w, c]. c % 8 == 0.

@@ -7,8 +7,10 @@ phase 1 in one batch; the flow planes are resized to the feature grid; the
 keyframe feature is MV-warped to every frame (K2) and fused with each
 frame's LR feature by CReFF, all G-1 frames in one launch each. The head is
 the model's ``forward_phase2_argmax`` where ``phase2_argmax_head`` allows
-it: camvid-bise18 fuses with K1 and takes the planes head (1x1 conv, x8
-bilinear, argmax); camvid-psp18 V1 fuses at full resolution and runs K3
+it: camvid-bise18 fuses with K1 (K4 for the other local fusion variants)
+and takes the planes head (1x1 conv, x8 bilinear, argmax), or K5 for
+fusion and head under ``nn/bisenet.USE_FUSED_UPSAMPLE_HEAD``;
+camvid-psp18 V1 fuses at full resolution and runs K3
 (module, 1x1 conv and argmax in one kernel). Elsewhere (camvid-psp18 V2)
 ``forward_phase2`` -> resize -> argmax.
 

@@ -10,6 +10,9 @@ reference's does, and a released ``.pth`` loads strict.
 
 Serving entry points compute no auxiliary head: ``forward_key`` (HR
 keyframe: logits + fused feature) and ``forward_phase1(x, with_aux=False)``.
+``forward_phase2_argmax`` takes the planes head (1x1 conv, x8 bilinear,
+argmax) unless ``USE_FUSED_UPSAMPLE_HEAD`` is set and the fusion is
+"local": then K5 runs the fusion and the whole head in one kernel.
 """
 
 import torch
@@ -20,6 +23,17 @@ from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.attention import get_fusion
 from arseg_tpu_torch.nn.functional import ConvBNReLU, batch_norm, resize_bilinear_nchw
 from arseg_tpu_torch.nn.resnet import ResNet
+from arseg_tpu_torch.ops import creff_kernel, creff_upsample_head_kernel
+from arseg_tpu_torch.ops.resize import resize_bilinear
+
+# The fused inference head (CReFF + final_conv + x8 upsample + argmax in one
+# kernel, K5: ops/creff_upsample_head_kernel.py), as the JAX package's
+# USE_FUSED_UPSAMPLE_HEAD. Off, as there, on a measurement of the card's
+# own: in three alternating pairs of tools_torch_profile_gop.py runs on
+# camvid-bise18 (H100, 700 W) K5's head took 0.52-0.55 ms more device time
+# per GOP than K1 + the planes head, and won one pair of three on the wall
+# clock (PERF.md, section 6).
+USE_FUSED_UPSAMPLE_HEAD = False
 
 
 def _upsample(x, factor):
@@ -182,7 +196,23 @@ class BiSeNetV1(nn.Module):
 
     def forward_phase2_argmax(self, mid, ref, return_fused=False):
         """argmax(x8 bilinear(final_conv(CReFF fusion))) as int32 class maps
-        [N, 8h, 8w]; with return_fused also the fused feature."""
+        [N, 8h, 8w]; with return_fused also the fused feature. Under
+        USE_FUSED_UPSAMPLE_HEAD with the "local" fusion K5 computes the
+        maps and never writes the fused feature; return_fused=True then
+        computes it beside them (K1)."""
+        if USE_FUSED_UPSAMPLE_HEAD and self.attention_type == "local":
+            fa = self.fuse_attention
+            ref_nhwc = ref.permute(0, 2, 3, 1)
+            lr_up = resize_bilinear(mid.permute(0, 2, 3, 1), ref_nhwc.shape[1:3],
+                                    align_corners=True)
+            taps, bias = creff_kernel.pack_qkv(
+                fa.lr_query_conv.weight, fa.lr_query_conv.bias, fa.hr_key_conv.weight,
+                fa.hr_key_conv.bias, fa.hr_value_conv.weight, fa.hr_value_conv.bias)
+            fc_w, fc_b = creff_upsample_head_kernel.pack_upsample_head(
+                self.final_conv.weight, self.final_conv.bias, lr_up.dtype)
+            pred = creff_upsample_head_kernel.creff_phase2_upsample_argmax(
+                lr_up, ref_nhwc, taps, bias, fc_w, fc_b, self.atten_k, self.atten_k)
+            return (pred, fa(ref, mid)) if return_fused else pred
         fused = self.fuse_attention(ref, mid)
         pred = _upsample(self.conv_out.conv_out(fused), 8).argmax(dim=1).to(torch.int32)
         return (pred, fused) if return_fused else pred

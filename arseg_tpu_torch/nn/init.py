@@ -23,7 +23,9 @@ def _fan_in(conv: nn.Conv2d):
 
 @torch.no_grad()
 def conv_kaiming_normal_a1_(conv: nn.Conv2d, gen: torch.Generator):
-    """kaiming_normal_(a=1) + zero bias (BiSeNet/attention init_weight)."""
+    """kaiming_normal_(a=1) + zero bias (BiSeNet/attention init_weight):
+    std 1/sqrt(fan_in), fan_in = kh * kw * cin / groups, so depthwise,
+    grouped and dense convs alike."""
     conv.weight.copy_(_normal(conv.weight.shape, 1.0 / math.sqrt(_fan_in(conv)), gen))
     if conv.bias is not None:
         conv.bias.zero_()
@@ -82,3 +84,15 @@ def randomize_bn_(model: nn.Module, gen: torch.Generator):
             m.bias.copy_(_normal((c,), 0.1, gen))
             m.running_mean.copy_(_normal((c,), 0.1, gen))
             m.running_var.copy_(0.5 + torch.rand((c,), generator=gen))
+
+
+@torch.no_grad()
+def mha_default_(mha: nn.MultiheadAttention, gen: torch.Generator):
+    """The JAX ``Init.mha_default`` (torch's own MultiheadAttention init):
+    in_proj_weight [3E, E] xavier-uniform, out_proj weight uniform
+    +-1/sqrt(E), zero biases."""
+    e = mha.embed_dim
+    mha.in_proj_weight.copy_(_uniform((3 * e, e), math.sqrt(6.0 / (4 * e)), gen))
+    mha.in_proj_bias.zero_()
+    mha.out_proj.weight.copy_(_uniform((e, e), 1.0 / math.sqrt(e), gen))
+    mha.out_proj.bias.zero_()

@@ -8,6 +8,7 @@ from arseg_tpu_torch.ops.warp import warp_feature, pad_for_warp, scale_and_resiz
 from arseg_tpu_torch.ops.local_attention import (
     local_similar,
     local_weighting,
+    creff_attention,
     creff_local_module,
     creff_local_module_resize,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "scale_and_resize_flow",
     "local_similar",
     "local_weighting",
+    "creff_attention",
     "creff_local_module",
     "creff_local_module_resize",
 ]

@@ -10,9 +10,12 @@ it. The launchers return ``cudaGetLastError()`` and the callables below
 raise on a non-zero code.
 
 The callables: ``creff_qkv_fused(out, lr_up, ref, taps, bias, kh, kw)``,
-``creff_phase2_argmax(out, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)``
-and ``warp_bilinear(out, src, fx, fy, align_corners)``. Launch counts for
-the wrappers in ``creff_kernel.py``, ``creff_head_kernel.py`` and
+``creff_phase2_argmax(out, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)``,
+``creff_attention(out, q, k, v, kh, kw)``,
+``creff_phase2_upsample_argmax(out, lr_up, ref, taps, bias, fc_w, fc_b,
+kh, kw)`` and ``warp_bilinear(out, src, fx, fy, align_corners)``. Launch
+counts for the wrappers in ``creff_kernel.py``, ``creff_head_kernel.py``,
+``creff_attention_kernel.py``, ``creff_upsample_head_kernel.py`` and
 ``warp_kernel.py`` live in ``LAUNCHES``.
 """
 
@@ -31,7 +34,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("creff_qkv_fused.cu", "creff_phase2_argmax.cu", "warp_bilinear.cu")
+KERNEL_SOURCES = ("creff_qkv_fused.cu", "creff_phase2_argmax.cu", "creff_attention.cu",
+                  "creff_phase2_upsample_argmax.cu", "warp_bilinear.cu")
 HEADERS = ("kernels.h", "creff_module.cuh")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17"]
@@ -115,6 +119,11 @@ def _bind(lib):
     lib.arseg_creff_qkv_fused.restype = i
     lib.arseg_creff_phase2_argmax.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.arseg_creff_phase2_argmax.restype = i
+    lib.arseg_creff_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.arseg_creff_attention.restype = i
+    lib.arseg_creff_phase2_upsample_argmax.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                                       i, p]
+    lib.arseg_creff_phase2_upsample_argmax.restype = i
     lib.arseg_warp_bilinear.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.arseg_warp_bilinear.restype = i
 
@@ -141,6 +150,19 @@ def _bind(lib):
                                             fc_b.data_ptr(), n, h, w, c, fc_w.shape[1], kh, kw,
                                             code(lr_up), stream(out)), "creff_phase2_argmax")
 
+    def creff_attention(out, q, k, v, kh, kw):
+        n, h, w, c = q.shape
+        check(lib.arseg_creff_attention(out.data_ptr(), q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), n, h, w, c, kh, kw, code(q), stream(out)),
+              "creff_attention")
+
+    def creff_phase2_upsample_argmax(out, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
+        n, h, w, c = lr_up.shape
+        check(lib.arseg_creff_phase2_upsample_argmax(
+            out.data_ptr(), lr_up.data_ptr(), ref.data_ptr(), taps.data_ptr(), bias.data_ptr(),
+            fc_w.data_ptr(), fc_b.data_ptr(), n, h, w, c, fc_w.shape[1], kh, kw, code(lr_up),
+            stream(out)), "creff_phase2_upsample_argmax")
+
     def warp_bilinear(out, src, fx, fy, align_corners):
         n, h, w, c = out.shape
         check(lib.arseg_warp_bilinear(out.data_ptr(), src.data_ptr(), fx.data_ptr(),
@@ -150,4 +172,6 @@ def _bind(lib):
 
     return types.SimpleNamespace(creff_qkv_fused=creff_qkv_fused,
                                  creff_phase2_argmax=creff_phase2_argmax,
+                                 creff_attention=creff_attention,
+                                 creff_phase2_upsample_argmax=creff_phase2_upsample_argmax,
                                  warp_bilinear=warp_bilinear, lib=lib)

@@ -1,0 +1,60 @@
+"""K4: windowed local attention — the wrapper of ``csrc/creff_attention.cu``
+and its plain PyTorch version.
+
+Replaces ``arseg_tpu/ops/pallas_creff.py`` ``creff_fused_pallas``
+(``_kernel``), which ``ops/local_attention.creff_attention`` reaches for
+every fusion variant of the "local" family except "local" itself:
+
+    out = softmax(local_similar(q, k)) . v
+
+over a kh x kw window, NHWC, q, k and v of one shape, without the
+[N, H, W, kh*kw] weights in device memory. Window positions outside the
+image give logit 0 and value 0, as ``nn.Unfold`` does. The source note in
+the ``.cu`` file says what bounds the kernel and how it is laid out.
+
+``creff_attention`` takes the plain version for a CPU tensor and launches
+the kernel for a CUDA tensor, raising on what the kernel does not take.
+"""
+
+import torch
+
+from arseg_tpu_torch.ops import _build
+from arseg_tpu_torch.ops.creff_kernel import CHANNEL_CHUNK
+
+NAME = "creff_attention"
+
+
+def creff_attention_plain(q, k, v, kh, kw):
+    """Plain version: ``local_attention.creff_reference`` in float32 with p
+    rounded to the input type before the weighting, as the TPU kernel
+    rounds it, and one final rounding (both the identity in float32)."""
+    from arseg_tpu_torch.ops.local_attention import local_similar, local_weighting
+
+    dt = q.dtype
+    p = torch.softmax(local_similar(q.float(), k.float(), kh, kw), dim=-1).to(dt).float()
+    return local_weighting(v.float(), p, kh, kw).to(dt)
+
+
+def creff_attention(q, k, v, kh, kw):
+    """q, k, v [N, H, W, C] of one shape (float32 or bfloat16) -> [N, H, W, C].
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if q.dim() != 4 or not q.shape == k.shape == v.shape:
+        raise ValueError(f"{NAME} takes q, k, v of one NHWC shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return creff_attention_plain(q, k, v, kh, kw)
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{NAME} takes float32 or bfloat16 inputs of one dtype")
+    c = q.shape[-1]
+    if c % CHANNEL_CHUNK:
+        raise ValueError(f"{NAME} needs C % {CHANNEL_CHUNK} == 0, got C={c}")
+    if kh != kw or kh not in (3, 5, 7):
+        raise ValueError(f"{NAME} is built for square 3, 5 or 7 windows, got {kh}x{kw}")
+    devs = {t.device for t in (q, k, v)}
+    if len(devs) != 1:
+        raise ValueError(f"{NAME} inputs must be on one device, got {devs}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)
+    _build.kernels().creff_attention(out, q, k, v, int(kh), int(kw))
+    _build.LAUNCHES[NAME] += 1
+    return out

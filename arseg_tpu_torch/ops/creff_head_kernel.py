@@ -51,29 +51,35 @@ def creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
     kernel."""
     if lr_up.device.type == "cpu":
         return creff_phase2_argmax_plain(lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)
+    lr_up, ref, args = check_head_args(NAME, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)
+    out = torch.empty(lr_up.shape[:3], dtype=torch.int32, device=lr_up.device)
+    _build.kernels().creff_phase2_argmax(out, lr_up, ref, *args, int(kh), int(kw))
+    _build.LAUNCHES[NAME] += 1
+    return out
+
+
+def check_head_args(name, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
+    """Raise on what the module + head kernels (K3, K5) do not take; else
+    (lr_up, ref, [taps, bias, fc_w, fc_b]) contiguous, the last four in
+    float32."""
     if lr_up.dim() != 4 or lr_up.shape != ref.shape:
         raise ValueError(f"lr_up {tuple(lr_up.shape)} and ref {tuple(ref.shape)} must be one NHWC shape")
     if lr_up.dtype != ref.dtype or lr_up.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{NAME} takes float32 or bfloat16 inputs of one dtype")
-    n, h, w, c = lr_up.shape
+        raise TypeError(f"{name} takes float32 or bfloat16 inputs of one dtype")
+    c = lr_up.shape[-1]
     if c % CHANNEL_CHUNK:
-        raise ValueError(f"{NAME} needs C % {CHANNEL_CHUNK} == 0, got C={c}")
+        raise ValueError(f"{name} needs C % {CHANNEL_CHUNK} == 0, got C={c}")
     if kh != kw or kh not in (3, 5, 7):
-        raise ValueError(f"{NAME} is built for square 3, 5 or 7 windows, got {kh}x{kw}")
+        raise ValueError(f"{name} is built for square 3, 5 or 7 windows, got {kh}x{kw}")
     if tuple(taps.shape) != (3, 9, c) or tuple(bias.shape) != (3, c):
         raise ValueError("taps/bias must come from pack_qkv")
     if fc_w.dim() != 2 or fc_w.shape[0] != c or tuple(fc_b.shape) != (fc_w.shape[1],):
         raise ValueError(f"fc_w must be [C={c}, K] and fc_b [K], got {tuple(fc_w.shape)}, "
                          f"{tuple(fc_b.shape)}")
     if not 1 <= fc_w.shape[1] <= MAX_CLASSES:
-        raise ValueError(f"{NAME} takes 1 to {MAX_CLASSES} classes, got {fc_w.shape[1]}")
+        raise ValueError(f"{name} takes 1 to {MAX_CLASSES} classes, got {fc_w.shape[1]}")
     devs = {t.device for t in (lr_up, ref, taps, bias, fc_w, fc_b)}
     if len(devs) != 1:
-        raise ValueError(f"{NAME} inputs must be on one device, got {devs}")
-    lr_up = lr_up.contiguous()
-    ref = ref.contiguous()
+        raise ValueError(f"{name} inputs must be on one device, got {devs}")
     args = [x.float().contiguous() for x in (taps, bias, fc_w, fc_b)]
-    out = torch.empty((n, h, w), dtype=torch.int32, device=lr_up.device)
-    _build.kernels().creff_phase2_argmax(out, lr_up, ref, *args, int(kh), int(kw))
-    _build.LAUNCHES[NAME] += 1
-    return out
+    return lr_up.contiguous(), ref.contiguous(), args

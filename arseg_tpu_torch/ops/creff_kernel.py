@@ -43,11 +43,12 @@ def _dw3(x, taps, bias):
     return acc + bias
 
 
-def creff_qkv_fused_plain(lr_up, ref, taps, bias, kh, kw):
-    """Plain version of the kernel's arithmetic: float32 depthwise convs with
-    Q, K, V rounded to the input type, float32 logits and softmax, p
-    rounded to the input type, float32 window sum and residual, one final
-    rounding. Window positions outside the image are zero (logit 0, value 0)."""
+def creff_module_f32_plain(lr_up, ref, taps, bias, kh, kw):
+    """The module body's arithmetic up to its float32 output (what an
+    epilogue receives): float32 depthwise convs with Q, K, V rounded to the
+    input type, float32 logits and softmax, p rounded to the input type,
+    float32 window sum and residual. Window positions outside the image are
+    zero (logit 0, value 0)."""
     from arseg_tpu_torch.ops.local_attention import local_similar, local_weighting
 
     dt = lr_up.dtype
@@ -55,7 +56,13 @@ def creff_qkv_fused_plain(lr_up, ref, taps, bias, kh, kw):
     k = _dw3(ref, taps[1], bias[1]).to(dt).float()
     v = _dw3(ref, taps[2], bias[2]).to(dt).float()
     p = torch.softmax(local_similar(q, k, kh, kw), dim=-1).to(dt).float()
-    return (lr_up.float() + local_weighting(v, p, kh, kw)).to(dt)
+    return lr_up.float() + local_weighting(v, p, kh, kw)
+
+
+def creff_qkv_fused_plain(lr_up, ref, taps, bias, kh, kw):
+    """Plain version of the kernel's arithmetic: the module body in float32,
+    rounded once to the input type."""
+    return creff_module_f32_plain(lr_up, ref, taps, bias, kh, kw).to(lr_up.dtype)
 
 
 def creff_qkv_fused(lr_up, ref, taps, bias, kh, kw):

@@ -8,17 +8,20 @@ with o = dy*kw + dx row-major and zero padding outside the image: a window
 position outside the image contributes logit 0 (not -inf) and value 0,
 exactly like nn.Unfold.
 
-``creff_local_module`` is the whole MyAttention forward (3x3 depthwise
-Q/K/V convs + windowed attention + residual). Its forward goes through K1
-(``creff_kernel.creff_qkv_fused``: the kernel on the card, its plain version
-on the CPU); its backward re-derives the gradients through the composed
-ops, as the JAX custom_vjp does.
+``creff_attention`` is softmax(similar(q, k)) . v on Q, K, V that the
+caller computed; its forward goes through K4
+(``creff_attention_kernel.creff_attention``). ``creff_local_module`` is
+the whole MyAttention forward (3x3 depthwise Q/K/V convs + windowed
+attention + residual); its forward goes through K1
+(``creff_kernel.creff_qkv_fused``). Each runs the kernel on the card and
+its plain version on the CPU; each backward re-derives the gradients
+through the composed ops, as the JAX custom_vjps do.
 """
 
 import torch
 import torch.nn.functional as F
 
-from arseg_tpu_torch.ops import creff_kernel
+from arseg_tpu_torch.ops import creff_attention_kernel, creff_kernel
 from arseg_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -54,6 +57,28 @@ def local_weighting(v, wgt, kh: int, kw: int):
 def creff_reference(q, k, v, kh: int, kw: int):
     """softmax(similar(q, k)) weighted sum of v."""
     return local_weighting(v, torch.softmax(local_similar(q, k, kh, kw), dim=-1), kh, kw)
+
+
+class _CreffAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kh, kw):
+        ctx.save_for_backward(q, k, v)
+        ctx.window = (kh, kw)
+        return creff_attention_kernel.creff_attention(q, k, v, kh, kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = creff_reference(*inputs, *ctx.window)
+        grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None)
+
+
+def creff_attention(q, k, v, kh: int = 7, kw: int = 7):
+    """softmax(similar(q, k)) weighted sum of v; q, k, v [N, H, W, C] of one
+    shape (port of the JAX ``creff_attention`` custom_vjp)."""
+    return _CreffAttention.apply(q, k, v, kh, kw)
 
 
 def _dwconv3(x, weight, bias):

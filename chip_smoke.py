@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero:
   3. kernels: each kernel against its plain PyTorch version at the shapes
      each driven path gives it, in float32 and bfloat16, with the tolerance
      stated: K1 and K2 at camvid-bise18's and camvid-psp18 V2's, K2 and K3
-     at camvid-psp18 V1's, and K1 at V1's C=64 shape for information (no
-     path runs it there); kernel, plain and library times (CUDA events,
+     at camvid-psp18 V1's, K4 at the localNoGroup and local5 shapes, K5 at
+     camvid-bise18's fused head, and K1 at V1's C=64 shape for information
+     (no path runs it there); kernel, plain and library times (CUDA events,
      median of 20 kernel runs, of 5 plain runs at the 720x960 shapes). Then
      K2 on the flow cases of tests/test_pallas_warp*.py at C=64 and C=256.
   4. camvid-bise18 AR 0.5x, GOP 12, 720x960, bf16, full width, random
@@ -25,7 +26,14 @@ Phases, in order; any failure exits non-zero:
      float32; camvid-psp18 V2: one GOP on the card with its launch counts
      (K1 and K2 once), and a short GOP on the CPU against the card, both in
      float32.
-  6. a JSON line of the kernels, and the last line {"ok": true, ...}.
+  6. camvid-bise18 with other CReFF fusions, the same traffic: the
+     localNoGroup fusion (K4) by scan_step over 3 GOPs with its launch
+     counts, one GOP of local5 (K4 on four sub-grids), and one localNoGroup
+     GOP on the CPU against the card in float32; then the fused upsample
+     head (K5, the USE_FUSED_UPSAMPLE_HEAD setting that is not the default)
+     by scan_step over 3 GOPs with its launch counts, and one GOP on the
+     CPU against the card in float32.
+  7. a JSON line of the kernels, and the last line {"ok": true, ...}.
 Every phase prints its seconds.
 """
 
@@ -54,12 +62,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no tensor 
 TOL = {
     "creff_qkv_fused": {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -6},
     "warp_bilinear": {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7},
+    "creff_attention": {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -6},
 }
-# K3 writes class maps: the share of pixels equal to the plain version's,
-# and where they differ the plain version's logits of its class and of the
-# kernel's must be a near tie, within this share of max |logit| (float32:
-# sums in another order; bfloat16: Q, K, V, p and the fused feature rounded
-# after such sums)
+# K3 and K5 write class maps: the share of pixels equal to the plain
+# version's, and where they differ the plain version's logits (for K5 the
+# upsampled ones) of its class and of the kernel's must be a near tie,
+# within this share of max |logit| (float32: sums in another order;
+# bfloat16: Q, K, V, p and the fused feature, or K5's logits and column
+# interpolation, rounded after such sums)
 K3_AGREEMENT = {torch.float32: 0.9999, torch.bfloat16: 0.999}
 K3_TIE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # one GOP, the card in float32 against the CPU in float32: class maps flip
@@ -197,6 +207,32 @@ def k2_case(gen, dt, n, hw, c, plain_runs):
                 flops=out_numel * 7)
 
 
+def check_maps(name, dt, got, logits, shape):
+    """A kernel's class map `got` against the argmax of the plain version's
+    float32 `logits` [..., K]: shape, range, agreement, and near ties
+    wherever they differ. Returns (agreement, pixels that differ, largest
+    plain-logit gap between the two classes there)."""
+    n_classes = logits.shape[-1]
+    want = logits.argmax(dim=-1).to(torch.int32)
+    in_range = int(got.min()) >= 0 and int(got.max()) < n_classes
+    differ = got != want
+    agree = 1.0 - differ.float().mean().item()
+    # where the maps differ: the plain logit of the plain version's class
+    # less that of the kernel's class
+    picked = got.clamp(0, n_classes - 1)[..., None].long()
+    gaps = (logits.gather(-1, want[..., None].long()) - logits.gather(-1, picked))[differ]
+    gap = gaps.max().item() if gaps.numel() else 0.0
+    tie_tol = K3_TIE[dt] * logits.abs().max().item()
+    ok = (tuple(got.shape) == tuple(shape) and in_range and agree >= K3_AGREEMENT[dt]
+          and gap <= tie_tol)
+    print(f"{name} {str(dt):14s} agreement={agree:.6f} (>= {K3_AGREEMENT[dt]}), "
+          f"{int(differ.sum())} pixels differ, largest plain-logit gap between the two classes "
+          f"there {gap:.3e} (near tie <= {tie_tol:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"chip_smoke: {name} disagrees with its plain version in {dt}")
+    return agree, int(differ.sum()), gap
+
+
 def k3_case(gen, dt, n, hw, c, n_classes):
     """K3 at [n, *hw, c] against its plain version: class-map agreement and
     near ties at every disagreement."""
@@ -211,34 +247,63 @@ def k3_case(gen, dt, n, hw, c, n_classes):
     args = (lr_up, ref, taps, bias, fc_w, fc_b, 7, 7)
     k3 = lambda: creff_head_kernel.creff_phase2_argmax(*args)
     p3 = lambda: creff_head_kernel.creff_phase2_argmax_plain(*args)
-    got = k3()
     # the plain version's logits, to find near ties where the maps differ
     logits = creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, 7, 7).float() @ fc_w + fc_b
-    want = logits.argmax(dim=-1).to(torch.int32)
-    in_range = int(got.min()) >= 0 and int(got.max()) < n_classes
-    differ = got != want
-    agree = 1.0 - differ.float().mean().item()
-    # where the maps differ: the plain logit of the plain version's class
-    # less that of the kernel's class
-    picked = got.clamp(0, n_classes - 1)[..., None].long()
-    gaps = (logits.gather(-1, want[..., None].long()) - logits.gather(-1, picked))[differ]
-    gap = gaps.max().item() if gaps.numel() else 0.0
-    tie_tol = K3_TIE[dt] * logits.abs().max().item()
-    del logits, gaps
-    ok = in_range and agree >= K3_AGREEMENT[dt] and gap <= tie_tol
-    print(f"creff_phase2_argmax {str(dt):14s} agreement={agree:.6f} (>= {K3_AGREEMENT[dt]}), "
-          f"{int(differ.sum())} pixels differ, largest plain-logit gap between the two classes "
-          f"there {gap:.3e} (near tie <= {tie_tol:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise SystemExit(f"chip_smoke: creff_phase2_argmax disagrees with its plain version in {dt}")
+    agree, differ, gap = check_maps("creff_phase2_argmax", dt, k3(), logits, (n, *hw))
+    del logits
     elem_bytes = lr_up.element_size()
     # a class map has no error magnitude: max_abs_err is that logit gap
-    return dict(max_abs_err=gap, agreement=agree, pixels_differ=int(differ.sum()),
+    return dict(max_abs_err=gap, agreement=agree, pixels_differ=differ,
                 ms=median_ms(k3), plain_ms=median_ms(p3, runs=PLAIN_RUNS_PSP), library_ms=None,
-                bytes=2 * lr_up.numel() * elem_bytes + got.numel() * 4
+                bytes=2 * lr_up.numel() * elem_bytes + n * hw[0] * hw[1] * 4
                 + (taps.numel() + bias.numel() + fc_w.numel() + fc_b.numel()) * 4,
                 # the module's 251 per element, and the 1x1 conv's multiply-adds
                 flops=lr_up.numel() * (251 + 2 * n_classes))
+
+
+def k4_case(gen, dt, n, hw, c, plain_runs):
+    """K4 at q, k, v [n, *hw, c] against its plain version."""
+    from arseg_tpu_torch.ops import creff_attention_kernel
+
+    q, k, v = (torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt) for _ in range(3))
+    k4 = lambda: creff_attention_kernel.creff_attention(q, k, v, 7, 7)
+    p4 = lambda: creff_attention_kernel.creff_attention_plain(q, k, v, 7, 7)
+    err = check("creff_attention", dt, k4(), p4())
+    # per element: 49-tap logits (98) and weighting (98)
+    return dict(max_abs_err=err, ms=median_ms(k4), plain_ms=median_ms(p4, runs=plain_runs),
+                library_ms=None, bytes=4 * q.numel() * q.element_size(), flops=q.numel() * 196)
+
+
+def k5_case(gen, dt, n, hw, c, n_classes):
+    """K5 at [n, *hw, c] -> [n, 8h, 8w] against its plain version: class-map
+    agreement and near ties of the plain upsampled logits at every
+    disagreement, as K3."""
+    from arseg_tpu_torch.ops import creff_upsample_head_kernel as k5
+
+    lr_up = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
+    ref = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
+    taps, bias = _qkv_params(gen, c)
+    weight = torch.randn(n_classes, c, 1, 1, device="cuda", generator=gen) / c ** 0.5
+    fc_w, fc_b = k5.pack_upsample_head(
+        weight, torch.randn(n_classes, device="cuda", generator=gen) * 0.1, dt)
+    args = (lr_up, ref, taps, bias, fc_w, fc_b, 7, 7)
+    run5 = lambda: k5.creff_phase2_upsample_argmax(*args)
+    plain5 = lambda: k5.creff_phase2_upsample_argmax_plain(*args)
+    logits = k5.upsampled_logits_plain(*args)
+    out_shape = (n, 8 * hw[0], 8 * hw[1])
+    agree, differ, gap = check_maps("creff_phase2_upsample_argmax", dt, run5(), logits, out_shape)
+    del logits
+    elem_bytes = lr_up.element_size()
+    out_px = n * out_shape[1] * out_shape[2]
+    return dict(max_abs_err=gap, agreement=agree, pixels_differ=differ,
+                ms=median_ms(run5), plain_ms=median_ms(plain5), library_ms=None,
+                bytes=2 * lr_up.numel() * elem_bytes + out_px * 4
+                + (taps.numel() + bias.numel() + fc_w.numel() + fc_b.numel()) * 4,
+                # the module's 251 per element and the 1x1 conv's multiply-adds;
+                # per class the column pass (3 per fused row and output column)
+                # and the row pass with the bias (4 per output)
+                flops=lr_up.numel() * (251 + 2 * n_classes)
+                + n_classes * (3 * n * hw[0] * 8 * hw[1] + 4 * out_px))
 
 
 def _block_flow(rng, n, h, w, lo, hi, jitter=0.0):
@@ -337,6 +402,10 @@ def kernel_phase():
         ("warp_bilinear", "psp18 V1", k2_case, big),
         ("creff_qkv_fused", "psp18 V2", k1_case, v2),
         ("warp_bilinear", "psp18 V2", k2_case, v2),
+        ("creff_attention", "bise18 localNoGroup", k4_case, (n, FEAT_HW, C, TIMED_RUNS)),
+        ("creff_attention", "bise18 local5 sub-grid", k4_case,
+         (n, (FEAT_HW[0] // 2, FEAT_HW[1] // 2), C, TIMED_RUNS)),
+        ("creff_phase2_upsample_argmax", "bise18 fused head", k5_case, (n, FEAT_HW, C, N_CLASSES)),
         # information: no driven path runs K1 at V1's shape (V1 runs K3 there)
         ("creff_qkv_fused", "psp18 V1 (information)", k1_case, big),
     ]
@@ -356,14 +425,16 @@ def kernel_phase():
     return stats
 
 
-def make_models(backend="camvid-bise18", fuse_version=1):
+def make_models(backend="camvid-bise18", fuse_version=1, attention_type="local"):
     """HR and LR models at full width on the CPU, weights from seeded
-    generators, BN statistics randomised. camvid-bise18: HR plain, LR fused;
-    camvid-psp18 V1: HR plain (V0), LR V1; V2: both V2."""
+    generators, BN statistics randomised. camvid-bise18: HR plain, LR fused
+    with `attention_type`; camvid-psp18 V1: HR plain (V0), LR V1; V2: both
+    V2."""
     from arseg_tpu_torch.models import build_model
     from arseg_tpu_torch.nn.init import randomize_bn_
 
-    kw = {} if backend == "camvid-bise18" else dict(fuse_version=fuse_version)
+    kw = (dict(attention_type=attention_type) if backend == "camvid-bise18"
+          else dict(fuse_version=fuse_version))
     hr_fuse = backend == "camvid-psp18" and fuse_version == 2
     models = []
     for seed, fuse in ((0, hr_fuse), (1, True)):
@@ -425,27 +496,108 @@ def pipeline_phase():
 
     pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm, device="cuda")
     preds, launches = run_clip(pipe, (kfs, frs, fxs, fys), "camvid-bise18")
-    expect_launches(launches, {"creff_qkv_fused": CLIP_GOPS, "warp_bilinear": CLIP_GOPS,
-                               "creff_phase2_argmax": 0}, "camvid-bise18")
+    expect_launches(launches, {"warp_bilinear": CLIP_GOPS, "creff_phase2_argmax": 0,
+                               "creff_attention": 0, **head_launches(None)}, "camvid-bise18")
+    card_vs_cpu(models, (kfs, frs, fxs, fys), preds[0], "camvid-bise18")
+    return launches
 
-    # one GOP: the card in float32 against the CPU (plain versions) in float32
+
+def head_launches(fused_head):
+    """Expected launches of K1 and K5 over a clip of camvid-bise18 "local"
+    with the fused upsample head on or off (None: the module default)."""
+    from arseg_tpu_torch.nn import bisenet
+
+    if fused_head is None:
+        fused_head = bisenet.USE_FUSED_UPSAMPLE_HEAD
+    return {"creff_qkv_fused": 0 if fused_head else CLIP_GOPS,
+            "creff_phase2_upsample_argmax": CLIP_GOPS if fused_head else 0}
+
+
+def card_vs_cpu(models, clip, preds_b16, name):
+    """One GOP on the card in float32 against the CPU (plain versions) in
+    float32: class-map agreement, and the fused features within FUSED_TOL."""
+    from arseg_tpu_torch.gop import ARPipeline
+
+    kfs, frs, fxs, fys = clip
     args = (kfs[:1], frs[0], (fxs[0], fys[0]))
+    norm = (CAMVID_MEAN, CAMVID_STD)
     card = ARPipeline(*models, scale=SCALE, normalize=norm, device="cuda")
+    cpu = ARPipeline(*models, scale=SCALE, normalize=norm, device="cpu")
     p_card, f_card = card.gop_step(*args, return_fused=True)
     t0 = time.perf_counter()
-    cpu = ARPipeline(*models, scale=SCALE, normalize=norm, device="cpu")
     p_cpu, f_cpu = cpu.gop_step(*args, return_fused=True)
     agree = (p_card.cpu() == p_cpu).float().mean().item()
     dfused = (f_card.cpu() - f_cpu).abs().max().item()
     fscale = f_cpu.abs().max().item()
-    agree_b16 = (preds[0].cpu() == p_cpu).float().mean().item()
-    print(f"card f32 vs CPU f32 (one GOP, CPU {time.perf_counter() - t0:.1f} s): class-map "
-          f"agreement {agree:.6f} (>= {AGREEMENT}), fused max|d| {dfused:.3e} "
+    agree_b16 = (preds_b16.cpu() == p_cpu).float().mean().item()
+    print(f"{name} card f32 vs CPU f32 (one GOP, CPU {time.perf_counter() - t0:.1f} s): "
+          f"class-map agreement {agree:.6f} (>= {AGREEMENT}), fused max|d| {dfused:.3e} "
           f"(max|fused| {fscale:.3e}); card bf16 vs CPU f32 agreement {agree_b16:.6f}",
           flush=True)
     if not agree >= AGREEMENT or not dfused <= FUSED_TOL * max(1.0, fscale):
-        raise SystemExit("chip_smoke: the card's float32 GOP disagrees with the CPU reference")
-    return launches
+        raise SystemExit(f"chip_smoke: the card's float32 {name} GOP disagrees with the CPU")
+
+
+def variants_phase():
+    """camvid-bise18 with the localNoGroup and local5 fusions (K4), then
+    with the fused upsample head (K5)."""
+    from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.nn import bisenet
+    from arseg_tpu_torch.ops import _build
+
+    norm = (CAMVID_MEAN, CAMVID_STD)
+    clip = make_clip(CLIP_GOPS)
+    paths = {}
+
+    phase("pipeline: camvid-bise18 AR, localNoGroup fusion (K4), GOP 12, 720x960, bf16")
+    models = make_models(attention_type="localNoGroup")
+    pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm, device="cuda")
+    preds, paths["camvid-bise18 localNoGroup"] = run_clip(pipe, clip, "camvid-bise18 localNoGroup")
+    expect_launches(paths["camvid-bise18 localNoGroup"],
+                    {"creff_attention": CLIP_GOPS, "warp_bilinear": CLIP_GOPS,
+                     "creff_qkv_fused": 0, "creff_phase2_upsample_argmax": 0},
+                    "camvid-bise18 localNoGroup")
+    del pipe
+    card_vs_cpu(models, clip, preds[0], "camvid-bise18 localNoGroup")
+
+    phase("pipeline: camvid-bise18 AR, local5 fusion (K4 on four sub-grids), one GOP, bf16")
+    pipe = ARPipeline(*make_models(attention_type="local5"), scale=SCALE, dtype=torch.bfloat16,
+                      normalize=norm, device="cuda")
+    kfs, frs, fxs, fys = (x.cuda() for x in clip)
+    pipe.gop_step(kfs[:1], frs[0], (fxs[0], fys[0]))  # warm-up
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    out = pipe.gop_step(kfs[:1], frs[0], (fxs[0], fys[0]))
+    torch.cuda.synchronize()
+    paths["camvid-bise18 local5"] = dict(_build.LAUNCHES)
+    print(f"camvid-bise18 local5 GOP: {tuple(out.shape)} {out.dtype}, classes "
+          f"{int(out.min())}..{int(out.max())}; launches {paths['camvid-bise18 local5']}",
+          flush=True)
+    if tuple(out.shape) != (GOP, H, W) or int(out.min()) < 0 or int(out.max()) >= N_CLASSES:
+        raise SystemExit("chip_smoke: bad local5 output")
+    expect_launches(paths["camvid-bise18 local5"],
+                    {"creff_attention": 4, "warp_bilinear": 1, "creff_qkv_fused": 0},
+                    "camvid-bise18 local5")
+    del pipe, out, kfs, frs, fxs, fys
+    torch.cuda.empty_cache()
+
+    head = not bisenet.USE_FUSED_UPSAMPLE_HEAD
+    phase(f"pipeline: camvid-bise18 AR, USE_FUSED_UPSAMPLE_HEAD={head} (not the default), "
+          f"GOP 12, 720x960, bf16")
+    bisenet.USE_FUSED_UPSAMPLE_HEAD = head
+    models = make_models()
+    pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm, device="cuda")
+    name = f"camvid-bise18 USE_FUSED_UPSAMPLE_HEAD={head}"
+    preds, paths[name] = run_clip(pipe, clip, name)
+    expect_launches(paths[name],
+                    {"warp_bilinear": CLIP_GOPS, "creff_attention": 0, **head_launches(head)},
+                    name)
+    del pipe
+    # with the fused head on, return_fused adds the fused feature through K1
+    card_vs_cpu(models, clip, preds[0], name)
+    bisenet.USE_FUSED_UPSAMPLE_HEAD = not head
+    torch.cuda.empty_cache()
+    return paths
 
 
 def psp18_phase():
@@ -526,7 +678,8 @@ def main():
     timed(build_phase, "build")
     stats = timed(kernel_phase, "kernels")
     paths = {"camvid-bise18": timed(pipeline_phase, "camvid-bise18 pipeline"),
-             **timed(psp18_phase, "camvid-psp18 pipelines")}
+             **timed(psp18_phase, "camvid-psp18 pipelines"),
+             **timed(variants_phase, "camvid-bise18 fusion variants and fused head")}
     kernels = []
     # each kernel in bfloat16 at the shape of the first path that runs it;
     # its other shapes beside it
@@ -537,6 +690,11 @@ def main():
                           "arseg_tpu/ops/pallas_warp.py:115", "bise18"),
         "creff_phase2_argmax": ("arseg_tpu_torch/csrc/creff_phase2_argmax.cu",
                                 "arseg_tpu/ops/pallas_creff.py:485", "psp18 V1"),
+        "creff_attention": ("arseg_tpu_torch/csrc/creff_attention.cu",
+                            "arseg_tpu/ops/pallas_creff.py:151", "bise18 localNoGroup"),
+        "creff_phase2_upsample_argmax": ("arseg_tpu_torch/csrc/creff_phase2_upsample_argmax.cu",
+                                         "arseg_tpu/ops/pallas_creff.py:648",
+                                         "bise18 fused head"),
     }
     keys = ("dims", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     for name, (source, replaces, shape) in sources.items():

@@ -114,8 +114,8 @@ def test_registry_refuses_unported_backends():
             build_model(backend, device="cpu")
     with pytest.raises(KeyError):
         build_model("nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("camvid-bise18", fuse=True, attention_type="global", device="cpu")
+    with pytest.raises(NotImplementedError, match="MyAttentionV1"):
+        build_model("camvid-bise18", fuse=True, attention_type="local1", device="cpu")
 
 
 def test_registry_init_is_seeded():

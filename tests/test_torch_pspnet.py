@@ -197,8 +197,8 @@ def test_registry_dispatch_and_seeded_init():
     assert torch.all(sd["up_2.conv.2.weight"] == 0.25)
     # msra init of the backbone: std sqrt(2 / (3 * 3 * 512))
     assert abs(sd["feats.layer4.1.conv2.weight"].std().item() - (2 / 4608) ** 0.5) < 2e-3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("camvid-psp18", fuse=True, attention_type="global", device="cpu")
+    with pytest.raises(NotImplementedError, match="MyAttentionV1"):
+        build_model("camvid-psp18", fuse=True, attention_type="local1", device="cpu")
 
 
 # ---------------------------------------------------------------- K3

@@ -3,6 +3,8 @@ chip_smoke.py's pipeline configuration (720x960, GOP 12, LR 0.5x, bf16, full
 width, seeded random weights, uint8 frames):
 
     python3 tools_torch_profile_gop.py                                   # camvid-bise18
+    python3 tools_torch_profile_gop.py --fused_upsample_head on          # its K5 head
+    python3 tools_torch_profile_gop.py --attention_type localNoGroup     # a K4 fusion
     python3 tools_torch_profile_gop.py --backend camvid-psp18 --fuse_version 1
 
 Prints the wall time per GOP (host clock around synchronised work, no
@@ -12,10 +14,13 @@ wall time, the kernel time and host time of each pipeline stage (the
 kernels by device time, from torch.profiler over a steady window after two
 warm-up GOPs. The host clock varies from clip to clip (the host's cores are
 shared), so the wall time is the median of several clips. The port's
-kernels are launched through their binding, outside any PyTorch op, so
-their time shows on their kernel lines and not under the ``gop.*`` span
-that launched them. Writes the chrome trace to
-chiprun_out/torch_gop_trace_<backend>.json.
+kernels are launched through their binding, outside any PyTorch op. K2,
+K3 and K5 are launched straight from their span, and their time shows on
+their kernel lines only, not under the ``gop.*`` span; K1 and K4 are
+launched inside a ``torch.autograd.Function``, whose op the profiler
+credits them to, so their time shows on their kernel lines and under
+``gop.fuse_head`` as well. Writes the chrome trace to
+chiprun_out/torch_gop_trace_<backend>[_<attention_type>][_k5head].json.
 """
 
 import argparse
@@ -29,9 +34,10 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 
 WALL_REPEATS = 5
-# K1 and K3 are one kernel template (creff_module.cuh) with the epilogues
-# StoreFused (K1) and ArgmaxHead (K3); K2 is warp_bilinear_kernel
-PORT_KERNELS = ("module_kernel", "warp_bilinear_kernel")
+# K1, K3 and K5 are one kernel template (creff_module.cuh) with the
+# epilogues StoreFused (K1), ArgmaxHead (K3) and UpsampleArgmaxHead (K5);
+# K4 is attention_kernel, K2 warp_bilinear_kernel
+PORT_KERNELS = ("module_kernel", "attention_kernel", "warp_bilinear_kernel")
 
 
 def main():
@@ -41,17 +47,28 @@ def main():
     ap.add_argument("--fuse_version", type=int, default=1, choices=[1, 2],
                     help="camvid-psp18 only: 1 fuses at full resolution (K3 head), 2 at the "
                          "backbone feature")
+    ap.add_argument("--attention_type", default="local",
+                    help="camvid-bise18 only: the CReFF fusion variant (nn/attention.get_fusion)")
+    ap.add_argument("--fused_upsample_head", choices=["on", "off"], default=None,
+                    help="camvid-bise18 only: set nn/bisenet.USE_FUSED_UPSAMPLE_HEAD (K5 head "
+                         "for the local fusion); default: the module's setting")
     args = ap.parse_args()
     gops = cs.CLIP_GOPS
     if not torch.cuda.is_available():
         raise SystemExit("tools_torch_profile_gop: no CUDA device")
     from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.nn import bisenet
 
+    if args.fused_upsample_head is not None:
+        bisenet.USE_FUSED_UPSAMPLE_HEAD = args.fused_upsample_head == "on"
     cs.device_phase()
     cs.build_phase()
-    print(f"{args.backend}" + (f" V{args.fuse_version}" if args.backend == "camvid-psp18" else ""),
-          flush=True)
-    pipe = ARPipeline(*cs.make_models(args.backend, args.fuse_version), scale=cs.SCALE,
+    bise = args.backend == "camvid-bise18"
+    tag = (f"{args.attention_type}, USE_FUSED_UPSAMPLE_HEAD={bisenet.USE_FUSED_UPSAMPLE_HEAD}"
+           if bise else f"V{args.fuse_version}")
+    print(f"{args.backend} {tag}", flush=True)
+    models = cs.make_models(args.backend, args.fuse_version, args.attention_type)
+    pipe = ARPipeline(*models, scale=cs.SCALE,
                       dtype=torch.bfloat16, normalize=(cs.CAMVID_MEAN, cs.CAMVID_STD),
                       device="cuda")
     kfs, frs, fxs, fys = (x.cuda() for x in cs.make_clip(gops))
@@ -92,7 +109,12 @@ def main():
               f"{e.cpu_time_total / 1e3 / gops:8.3f}", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=25), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(f"chiprun_out/torch_gop_trace_{args.backend}.json")
+    name = args.backend
+    if bise and args.attention_type != "local":
+        name += f"_{args.attention_type}"
+    if bise and bisenet.USE_FUSED_UPSAMPLE_HEAD:
+        name += "_k5head"
+    prof.export_chrome_trace(f"chiprun_out/torch_gop_trace_{name}.json")
 
 
 if __name__ == "__main__":
