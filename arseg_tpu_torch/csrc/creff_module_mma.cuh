@@ -1,0 +1,463 @@
+// The fused CReFF module body (MyAttention forward) for bfloat16 on the
+// tensor cores, NHWC, used by K1 (creff_qkv_fused.cu) and K3
+// (creff_phase2_argmax.cu) for bf16 inputs:
+//   fused = lr_up + softmax(similar(dw3(lr_up; q), dw3(ref; k))) . dw3(ref; v)
+// over a K x K window (K in {3, 5, 7}), any h, w >= 1, C % 16 == 0. Same
+// function and rounding points as creff_module.cuh (which now serves the
+// float32 inputs and K5): Q, K, V and p rounded to bf16, every sum float32.
+//
+// Design for Hopper:
+// - Warp = one pixel-row segment. A warp owns 16 consecutive pixels of one
+//   output row, the m16 of mma.sync.m16n8k16 (bf16 in, f32 accumulate).
+//   A block is TH = 16 rows x TW = 16 columns, 16 warps, one block per SM
+//   at 128 registers a thread. Its K/V depthwise convs cover
+//   (16 + K - 1)^2 positions for 256 outputs: 484 / 256 = 1.89x at K = 7
+//   (the CUDA-core body's 8 x 16 tile: 308 / 128 = 2.41x). The other
+//   shapes tried on the card (8 x 16, 8 x 32, 4 x 32) were not faster;
+//   16 x 16 has the smallest halo of them.
+// - Logits on the tensor cores. For each window row dy the warp forms
+//   S_dy = Q[16 px, C] . K[row y+dy, 24 positions, C]^T: three n8 tiles per
+//   16-channel k step, summed over all channel chunks in registers
+//   (K * 12 float32 a thread). The window is the band px <= j < px + K of
+//   those 24 columns (7 of 24 at K = 7); columns off the band are left
+//   out of the softmax, as the TPU kernel's -inf mask does. In-band
+//   positions outside the image hold K = 0 (bias included), so they enter
+//   with logit 0, as nn.Unfold does.
+// - Softmax on the accumulator fragments: a pixel's row lives on the four
+//   lanes of a quad, reduced with __shfl_xor_sync over 1 and 2. p is
+//   rounded to bf16 and off-band entries are exactly 0.
+// - p . v on the tensor cores: the logit tiles are repacked in registers
+//   as A fragments (as FlashAttention-2 does): positions 0..15 as one
+//   m16k16 fragment, 16..23 as one m16k8 fragment (the band ends at
+//   15 + K - 1 <= 21), multiplied by V[positions, 16 channels] read with
+//   ldmatrix.trans from the same [position][channel] tile. Positions past
+//   the tile's 16 + K - 1 (up to 24) are written as zeros once, so
+//   0 x stale memory never makes a NaN.
+// - K/V and Q tiles are [position][16 channels] with a 48-byte position
+//   stride, so the eight 16-byte rows of every ldmatrix fall on distinct
+//   banks.
+// - A pipeline of 16-channel chunks over both passes. Step j, between one
+//   barrier and the next: start the cp.async 16-byte copies of chunk j + 2
+//   (the raw bf16 ref and lr_up halos, zero-filled outside the image
+//   through src-size 0, and the chunk's taps and biases) into a ring of
+//   three slots; convolve chunk j + 1 on the CUDA cores into one of two
+//   K/V and Q buffers; multiply chunk j on the tensor cores. One warp's
+//   products overlap another's convs, and every copy has a whole step to
+//   land. The ref halo is staged again in pass 2 (mostly from L2); keeping
+//   all of it resident (C = 64 would fit) is not used, so one body serves
+//   every C.
+// - The 3x3 depthwise convs stay on the CUDA cores in float32, summed in
+//   the TPU kernel's order, so Q, K and V equal the plain version's bit for
+//   bit. A thread takes a channel pair and two vertically adjacent outputs,
+//   which share three of their four loaded rows.
+// - Shared memory (dynamic): 167,424 bytes at K = 7, 153,984 at K = 5,
+//   141,312 at K = 3.
+//
+// Why not wgmma: a 64-row warpgroup tile would span four pixel rows whose
+// key bands differ, wasting more of the product; the function is bytes
+// bound, and at ~29% band use mma.sync is not the limit by count.
+//
+// Epilogue interface (per warp, per 16-channel chunk): a struct with
+//   __device__ void chunk(const Seg& seg, int c0, const float acc[2][4]);
+//   __device__ void finish(const Seg& seg);
+// acc is the chunk's [16 px, 16 ch] float32 fused fragment in mma.sync's
+// accumulator layout: acc[nt][2r + e] is pixel g + 8r, channel
+// c0 + 8nt + 2t + e, with g = lane / 4, t = lane % 4. chunk() is called by
+// every lane of every warp once per chunk in order (so it may use
+// __syncwarp and the segment's shared scratch); finish() once after the
+// last chunk. Seg says which of the 16 pixels lie in the image.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace creff_mma {
+
+constexpr int TH = 16;              // output tile rows
+constexpr int TW = 16;              // output tile cols: one 16-pixel segment
+constexpr int NT = TH * 32;         // threads per block: one warp per row
+constexpr int MIN_BLOCKS = 65536 / (NT * 128);  // blocks per SM at 128 registers
+constexpr int VR = 2;         // conv output rows per item (their rows share loads)
+constexpr int CC = 16;        // channels per chunk: one k step
+constexpr int PS = 24;        // bf16 per staged position (16 + 8 pad: 48 B)
+
+template <int K>
+struct Geom {
+  static constexpr int P = K / 2;
+  static constexpr int RH = TH + K + 1, RW = TW + K + 1;  // raw ref halo
+  static constexpr int LH = TH + 2, LW = TW + 2;          // raw lr_up halo
+  static constexpr int KH = TH + K - 1, KW = TW + K - 1;  // K/V positions
+  static constexpr int KVP = TW + 8;  // K/V row stride in positions
+  static constexpr int RBUF = RH * RW * CC, LBUF = LH * LW * CC;  // bf16 each
+  static constexpr int KV = KH * KVP * PS, Q = TH * TW * PS;
+  static constexpr int TB = 3 * 10 * CC;  // float32: q, k, v x (9 taps, bias) x channel
+  // raw halos in a ring of three, K/V and Q double-buffered
+  static constexpr int SMEM_BYTES = 2 * (3 * (RBUF + LBUF) + 2 * (KV + Q)) + 4 * 3 * TB;
+  static_assert(KW <= KVP && 24 <= KVP, "K/V row too short");
+};
+
+// this warp's segment: output row gy, first column gx0, and the flat index
+// of its first pixel; n_valid of its 16 pixels lie in the image (0 if the
+// row is outside). scratch: 16 x PS bf16 of shared memory of its own.
+struct Seg {
+  int64_t pix0;
+  int n_valid;
+  __nv_bfloat16* scratch;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n"); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a . b, m16n8k16, bf16 inputs, float32 accumulators
+__device__ __forceinline__ void mma(float d[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b, m16n8k8, bf16 inputs, float32 accumulators
+__device__ __forceinline__ void mma_k8(float d[4], const uint32_t a[2], uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+// two float32 values rounded to bf16 and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 load_bf16x2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Start the copies of one 16-channel chunk (channels c0..c0+15) of the raw
+// ref halo (rows y0-P-1.., cols x0-P-1..) and lr_up halo (rows y0-1..,
+// cols x0-1..) into [position][16] bf16 buffers, zero outside the image,
+// and of the chunk's taps and biases into tb[conv][tap or 9 = bias][16].
+template <int K>
+__device__ __forceinline__ void stage_chunk(__nv_bfloat16* rb, __nv_bfloat16* lb, float* tb,
+                                            const __nv_bfloat16* ref_img,
+                                            const __nv_bfloat16* lr_img,
+                                            const float* __restrict__ taps,
+                                            const float* __restrict__ bias, int h, int w, int c,
+                                            int c0, int y0, int x0) {
+  using G = Geom<K>;
+  for (int i = threadIdx.x; i < 3 * 10 * (CC / 4); i += NT) {
+    const int conv = i / (10 * (CC / 4)), o = i / (CC / 4) % 10, quarter = 4 * (i % (CC / 4));
+    const float* src = o < 9 ? taps + (conv * 9 + o) * c : bias + conv * c;
+    cp_async16(tb + (conv * 10 + o) * CC + quarter, src + c0 + quarter, true);
+  }
+  for (int i = threadIdx.x; i < G::RH * G::RW * 2; i += NT) {
+    const int pos = i >> 1, half = (i & 1) * 8;
+    const int gy = y0 - G::P - 1 + pos / G::RW, gx = x0 - G::P - 1 + pos % G::RW;
+    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
+    const __nv_bfloat16* src =
+        in ? ref_img + (static_cast<int64_t>(gy) * w + gx) * c + c0 + half : ref_img;
+    cp_async16(rb + pos * CC + half, src, in);
+  }
+  for (int i = threadIdx.x; i < G::LH * G::LW * 2; i += NT) {
+    const int pos = i >> 1, half = (i & 1) * 8;
+    const int gy = y0 - 1 + pos / G::LW, gx = x0 - 1 + pos % G::LW;
+    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
+    const __nv_bfloat16* src =
+        in ? lr_img + (static_cast<int64_t>(gy) * w + gx) * c + c0 + half : lr_img;
+    cp_async16(lb + pos * CC + half, src, in);
+  }
+}
+
+// 3x3 depthwise conv (+bias) of a staged raw halo `src` (row width SW) at
+// rows x cols positions into dst[(row * DSTRIDE + col) * PS + ch], rounded to
+// bf16; with MASK, positions outside the image (origin gy0, gx0) are 0,
+// bias included. tb: the conv's staged [9 taps + bias][16] float32. Each
+// thread takes one channel pair and VR output rows at a time; taps are
+// summed columns outer, rows inner, then the bias, as the TPU kernel and
+// the plain version sum them.
+template <int SW, int ROWS, int COLS, int DSTRIDE, bool MASK>
+__device__ __forceinline__ void dw3(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                    const float* tb, int h, int w, int gy0, int gx0) {
+  static_assert(ROWS % VR == 0, "rows per item must divide the rows");
+  const int cl = 2 * (threadIdx.x & 7);
+  const float2* tp = reinterpret_cast<const float2*>(tb + cl);  // tap o at tp[o * CC / 2]
+  const float2 bs = tp[9 * CC / 2];
+  for (int it = threadIdx.x >> 3; it < (ROWS / VR) * COLS; it += NT / 8) {
+    const int r0 = VR * (it / COLS), q = it % COLS;
+    float ax[VR], ay[VR];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      float2 v[VR + 2];  // column q + b, rows r0 .. r0 + VR + 1
+#pragma unroll
+      for (int a = 0; a < VR + 2; ++a) v[a] = load_bf16x2(src + ((r0 + a) * SW + q + b) * CC + cl);
+#pragma unroll
+      for (int o = 0; o < VR; ++o)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float2 tap = tp[(a * 3 + b) * CC / 2];
+          const float tx = __fmul_rn(v[o + a].x, tap.x);
+          const float ty = __fmul_rn(v[o + a].y, tap.y);
+          ax[o] = (a == 0 && b == 0) ? tx : __fadd_rn(ax[o], tx);
+          ay[o] = (a == 0 && b == 0) ? ty : __fadd_rn(ay[o], ty);
+        }
+    }
+#pragma unroll
+    for (int o = 0; o < VR; ++o) {
+      const int r = r0 + o;
+      const bool in = !MASK || (gy0 + r >= 0 && gy0 + r < h && gx0 + q >= 0 && gx0 + q < w);
+      *reinterpret_cast<uint32_t*>(dst + (r * DSTRIDE + q) * PS + cl) =
+          in ? pack_bf16(__fadd_rn(ax[o], bs.x), __fadd_rn(ay[o], bs.y)) : 0u;
+    }
+  }
+}
+
+// Grid: (ceil(w / TW), ceil(h / TH), n); NT threads; Geom<K>::SMEM_BYTES
+// of dynamic shared memory. Chunks 0..nc-1 are pass 1 (the logits), chunks
+// nc..2nc-1 pass 2 (p . v + residual -> epilogue). Step j of one pipeline
+// over both passes, between one barrier and the next: start the copies of
+// chunk j + 2, convolve chunk j + 1 (K and Q, or V) on the CUDA cores, and
+// multiply chunk j on the tensor cores, so one warp's products overlap
+// another's convs.
+template <int K, class Epi>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    module_kernel(const __nv_bfloat16* __restrict__ lr, const __nv_bfloat16* __restrict__ ref,
+                  const float* __restrict__ taps, const float* __restrict__ bias, int h, int w,
+                  int c, Epi epi_arg) {
+  using G = Geom<K>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* rbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [3][RBUF] raw ref
+  __nv_bfloat16* lbuf = rbuf + 3 * G::RBUF;  // [3][LBUF] raw lr_up
+  __nv_bfloat16* kv_s = lbuf + 3 * G::LBUF;  // [2][KH][KVP][PS]: K (pass 1) or V (pass 2)
+  __nv_bfloat16* q_s = kv_s + 2 * G::KV;     // [2][TH * TW][PS]: Q; pass 2: epilogue scratch
+  float* t_s = reinterpret_cast<float*>(q_s + 2 * G::Q);  // [3][TB] taps and biases
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int py = warp;  // the warp's output row in the tile
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int64_t plane = static_cast<int64_t>(h) * w * c;
+  const __nv_bfloat16* lr_img = lr + blockIdx.z * plane;
+  const __nv_bfloat16* ref_img = ref + blockIdx.z * plane;
+  const int nc = c / CC;
+
+  // K/V positions past the tile's KW columns: read by the products, never
+  // written by the convs; zero once in both buffers
+  constexpr int PAD = G::KVP - G::KW;
+  for (int i = threadIdx.x; i < 2 * G::KH * PAD * (CC / 2); i += NT) {
+    const int ch = 2 * (i % (CC / 2)), pos = i / (CC / 2);
+    const int row = pos / PAD, col = G::KW + pos % PAD;  // row over both buffers
+    *reinterpret_cast<uint32_t*>(kv_s + (row * G::KVP + col) * PS + ch) = 0u;
+  }
+
+  auto issue = [&](int j) {  // start the copies of chunk j into ring slot j % 3
+    if (j < 2 * nc)
+      stage_chunk<K>(rbuf + (j % 3) * G::RBUF, lbuf + (j % 3) * G::LBUF, t_s + (j % 3) * G::TB,
+                     ref_img, lr_img, taps, bias, h, w, c, (j % nc) * CC, y0, x0);
+    cp_async_commit();  // an empty group past the end keeps the count uniform
+  };
+  auto convolve = [&](int j) {  // chunk j's K and Q, or V, into buffer j & 1
+    const __nv_bfloat16* rb = rbuf + (j % 3) * G::RBUF;
+    const float* tb = t_s + (j % 3) * G::TB;
+    __nv_bfloat16* kv = kv_s + (j & 1) * G::KV;
+    if (j < nc) {
+      dw3<G::RW, G::KH, G::KW, G::KVP, true>(kv, rb, tb + 10 * CC, h, w, y0 - G::P, x0 - G::P);
+      dw3<G::LW, TH, TW, TW, false>(q_s + (j & 1) * G::Q, lbuf + (j % 3) * G::LBUF, tb, h, w, 0,
+                                    0);
+    } else {
+      dw3<G::RW, G::KH, G::KW, G::KVP, true>(kv, rb, tb + 20 * CC, h, w, y0 - G::P, x0 - G::P);
+    }
+  };
+  // one step: chunk j + 1 has landed, start chunk j + 2's copies into the
+  // ring slot of chunk j - 1 and convolve chunk j + 1
+  auto begin_step = [&](int j) {
+    cp_async_wait_all();
+    __syncthreads();  // step j - 1 is done: chunk j's convs are visible
+    issue(j + 2);
+    if (j + 1 < 2 * nc) convolve(j + 1);
+  };
+
+  float s[K][3][4];  // logits: window row dy, n8 tile of positions, fragment
+#pragma unroll
+  for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+    for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[dy][nt][e] = 0.0f;
+  uint32_t p[K][3][2];  // p in bf16 pairs: window row, n8 tile, pixel row g + 8r
+
+  issue(0);
+  issue(1);
+  cp_async_wait_all();
+  __syncthreads();
+  convolve(0);
+  // ---- pass 1: S_dy += Q . K_dy^T, 16 channels a step -------------------
+  for (int j = 0; j < nc; ++j) {
+    begin_step(j);
+    const __nv_bfloat16* kv = kv_s + (j & 1) * G::KV + py * G::KVP * PS;
+    uint32_t a[4];
+    ldsm_x4(a, q_s + (j & 1) * G::Q + (py * TW + (lane & 7) + ((lane >> 3) & 1) * 8) * PS +
+                   (lane >> 4) * 8);
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy) {
+      const __nv_bfloat16* kb = kv + dy * G::KVP * PS;
+      uint32_t b[4], b2[2];
+      ldsm_x4(b, kb + ((lane & 7) + (lane >> 4) * 8) * PS + ((lane >> 3) & 1) * 8);
+      ldsm_x2(b2, kb + (16 + (lane & 7)) * PS + ((lane >> 3) & 1) * 8);
+      mma(s[dy][0], a, b[0], b[1]);
+      mma(s[dy][1], a, b[2], b[3]);
+      mma(s[dy][2], a, b2[0], b2[1]);
+    }
+  }
+
+  // ---- softmax over the band, p rounded to bf16 --------------------------
+  // column col = 8 nt + 2t + e of row r is window position col - px of
+  // pixel px = g + 8r, inside the window iff px <= col < px + K
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int px = g + 8 * r;
+    float m = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * nt + 2 * t + e;
+          if (col >= px && col < px + K) m = fmaxf(m, s[dy][nt][2 * r + e]);
+        }
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float sum = 0.0f;
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * nt + 2 * t + e;
+          const float ex = (col >= px && col < px + K) ? expf(s[dy][nt][2 * r + e] - m) : 0.0f;
+          s[dy][nt][2 * r + e] = ex;
+          sum += ex;
+        }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+        p[dy][nt][r] = pack_bf16(s[dy][nt][2 * r] / sum, s[dy][nt][2 * r + 1] / sum);
+  }
+
+  // ---- pass 2: p . V_dy + residual -> epilogue, 16 channels a step -------
+  // positions 0..15 of the band as one k16 step, 16..23 as one k8 step (a
+  // pixel's window ends at position 15 + K - 1 <= 21). The epilogue's state
+  // comes to registers only now, when the logits are gone.
+  Epi epi = epi_arg;
+  Seg seg;
+  {
+    const int gy = y0 + py, gx0 = x0;
+    seg.n_valid = gy < h ? max(0, min(16, w - gx0)) : 0;
+    seg.pix0 = (static_cast<int64_t>(blockIdx.z) * h + gy) * w + gx0;
+    seg.scratch = q_s + py * TW * PS;
+  }
+  for (int j = nc; j < 2 * nc; ++j) {
+    begin_step(j);
+    const __nv_bfloat16* kv = kv_s + (j & 1) * G::KV + py * G::KVP * PS;
+    const __nv_bfloat16* lb = lbuf + (j % 3) * G::LBUF;  // the residual lr_up
+    float acc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 v =
+            load_bf16x2(lb + ((py + 1) * G::LW + g + 8 * r + 1) * CC + 8 * nt + 2 * t);
+        acc[nt][2 * r] = v.x;
+        acc[nt][2 * r + 1] = v.y;
+      }
+    float pv[2][4] = {};
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy) {
+      const __nv_bfloat16* vb = kv + dy * G::KVP * PS;
+      uint32_t b[4], b2[2];
+      ldsm_x4_t(b, vb + ((lane & 7) + ((lane >> 3) & 1) * 8) * PS + (lane >> 4) * 8);
+      ldsm_x2_t(b2, vb + (16 + (lane & 7)) * PS + ((lane >> 3) & 1) * 8);
+      const uint32_t a[4] = {p[dy][0][0], p[dy][0][1], p[dy][1][0], p[dy][1][1]};
+      const uint32_t a2[2] = {p[dy][2][0], p[dy][2][1]};
+      mma(pv[0], a, b[0], b[1]);
+      mma(pv[1], a, b[2], b[3]);
+      mma_k8(pv[0], a2, b2[0]);
+      mma_k8(pv[1], a2, b2[1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += pv[nt][e];
+    epi.chunk(seg, (j - nc) * CC, acc);
+  }
+  epi.finish(seg);
+}
+
+template <int K, class Epi>
+int launch(const void* lr, const void* ref, const float* taps, const float* bias, int n, int h,
+           int w, int c, const Epi& epi, cudaStream_t stream) {
+  if (n == 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(lr) | reinterpret_cast<uintptr_t>(ref) |
+       reinterpret_cast<uintptr_t>(taps) | reinterpret_cast<uintptr_t>(bias)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);  // 16-byte cp.async sources
+  constexpr int smem = Geom<K>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(module_kernel<K, Epi>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
+  module_kernel<K, Epi><<<grid, NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(lr), static_cast<const __nv_bfloat16*>(ref), taps, bias,
+      h, w, c, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K in {3, 5, 7}; any other window is refused.
+template <class Epi>
+int launch_k(const void* lr, const void* ref, const float* taps, const float* bias, int n, int h,
+             int w, int c, int k, const Epi& epi, cudaStream_t stream) {
+  switch (k) {
+    case 3: return launch<3>(lr, ref, taps, bias, n, h, w, c, epi, stream);
+    case 5: return launch<5>(lr, ref, taps, bias, n, h, w, c, epi, stream);
+    case 7: return launch<7>(lr, ref, taps, bias, n, h, w, c, epi, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace creff_mma

@@ -1,38 +1,50 @@
 // K3: the fused CReFF module + 1x1 final_conv + argmax, NHWC:
 //   pred[n,y,x] = argmax_k ( sum_c round_T(fused[n,y,x,c]) * fc_w[c,k] + fc_b[k] )
 // with fused = lr_up + softmax(similar(dw3(lr_up; q), dw3(ref; k))) . dw3(ref; v)
-// (creff_module.cuh, shared with K1). The fused feature and the logits
-// never reach device memory; the output is one int32 per pixel.
+// (K1's function). The fused feature and the logits never reach device
+// memory; the output is one int32 per pixel.
 //
 // Replaces: arseg_tpu/ops/pallas_creff.py creff_phase2_argmax
 // (_qkv_head_kernel -> _fused_module_body, then a [C, n_classes] dot and
 // argmax). The TPU kernel padded the classes to 128 lanes with a -inf bias
-// and wrote int32 tiles of 128 lanes; here each thread keeps its pixel's
-// logits in registers and takes the argmax with a strict '>', so the lowest
-// index wins a tie, as jnp.argmax does.
+// and wrote int32 tiles of 128 lanes.
+//
+// bfloat16 runs the tensor-core body, creff_module_mma.cuh (banded
+// mma.sync window products, cp.async halo staging a chunk ahead, 16 x 16
+// tiles, K/V conv halo 1.89x at K = 7), and the 1x1 conv on the tensor
+// cores too: each chunk's fused fragment, rounded to bf16 (the TPU
+// kernel's fused.astype(in_dtype)), is repacked in registers as an m16k16
+// A fragment and multiplied by fc_w in bf16 (its values are bf16 already,
+// pack_head) with the classes padded to 24 by zero columns: three n8
+// float32 accumulator tiles summed over the channel chunks. Then the
+// float32 bias, and the argmax over the quad that holds a pixel's row,
+// lowest index on ties, padded classes never chosen. float32 (the parity
+// checks only) runs the CUDA-core body, creff_module.cuh, whose epilogue
+// keeps each pixel's logits in registers and takes a strict '>'.
 //
 // Bound on the H100: at [11,720,960,64] bf16 (camvid-psp18 V1) the function
 // reads lr_up and ref once (2 x 973 MB) and writes 30 MB of int32, about
 // 0.59 ms at 3.35 TB/s; its ~134 GFLOP (K1's 251 flops per element plus
 // 2 x 12 for the 1x1 conv) would take 0.13 ms at the bf16 tensor rate, so
-// bytes bound it. This first kernel inherits K1's limit, shared-memory reads
-// in the window products, and adds n_classes FMAs per channel per pixel in
-// registers: its design keeps only the int32 map in device memory.
+// bytes bound it. The tensor-core body's limit is K1's: products and
+// depthwise convs overlapped across warps, one block of 16 warps per SM
+// held there by its 128 registers a thread (PERF.md).
 //
-// Epilogue: fused values arrive per channel chunk in float32, are rounded to
-// the input type (the TPU kernel's fused.astype(in_dtype) before the dot),
-// multiplied by fc_w (float32 holding values of the input type) and summed
-// in float32, channel by channel in order; then the float32 bias.
+// ptxas (tools_torch_ptxas.py, CUDA 12.8, sm_90a), bf16 body with this
+// epilogue: K = 7: 128 registers, 96 bytes spilled; K = 5: 128 registers,
+// no spills; K = 3: 126 registers, no spills. Dynamic shared memory
+// 167,424 / 153,984 / 141,312 bytes (creff_module_mma.cuh).
 
 #include "creff_module.cuh"
+#include "creff_module_mma.cuh"
 #include "kernels.h"
 
 namespace {
 
 constexpr int MAX_CLASSES = 19;  // CamVid 12, Cityscapes 19
+constexpr int CLASS_TILES = 3;   // n8 tiles: classes padded to 24
 
-template <typename T>
-struct ArgmaxHead {
+struct ArgmaxHead {  // float32, CUDA-core body
   static constexpr int HALO = 0;
   int32_t* out;         // [n, h, w]
   const float* fc_w;    // [c, n_classes]
@@ -43,11 +55,10 @@ struct ArgmaxHead {
   __device__ __forceinline__ void chunk(int64_t, int c0, const float f[creff::CC]) {
 #pragma unroll
     for (int cc = 0; cc < creff::CC; ++cc) {
-      const float v = creff::round_to<T>(f[cc]);
       const float* wrow = fc_w + (c0 + cc) * n_classes;
 #pragma unroll
       for (int k = 0; k < MAX_CLASSES; ++k)
-        if (k < n_classes) logit[k] = fmaf(v, __ldg(wrow + k), logit[k]);
+        if (k < n_classes) logit[k] = fmaf(f[cc], __ldg(wrow + k), logit[k]);
     }
   }
 
@@ -69,17 +80,70 @@ struct ArgmaxHead {
   }
 };
 
-template <typename T>
-int run(int32_t* out, const void* lr, const void* ref, const float* taps, const float* bias,
-        const float* fc_w, const float* fc_b, int n, int h, int w, int c, int n_classes, int k,
-        cudaStream_t stream) {
-  ArgmaxHead<T> epi{};
-  epi.out = out;
-  epi.fc_w = fc_w;
-  epi.fc_b = fc_b;
-  epi.n_classes = n_classes;
-  return creff::launch_k<T>(lr, ref, taps, bias, n, h, w, c, k, epi, stream);
-}
+struct ArgmaxHeadMma {  // bfloat16, tensor-core body
+  int32_t* out;       // [n, h, w]
+  const float* fc_w;  // [c, n_classes], values of bf16
+  const float* fc_b;  // [n_classes]
+  int n_classes;
+  float logit[CLASS_TILES][4];  // zero in the launch argument; accumulator tiles
+
+  // fc_w[ch][cls] as bf16, zero for padded classes
+  __device__ __forceinline__ float wt(int ch, int cls) const {
+    return cls < n_classes ? __ldg(fc_w + ch * n_classes + cls) : 0.0f;
+  }
+
+  __device__ __forceinline__ void chunk(const creff_mma::Seg&, int c0, const float acc[2][4]) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const uint32_t a[4] = {creff_mma::pack_bf16(acc[0][0], acc[0][1]),
+                           creff_mma::pack_bf16(acc[0][2], acc[0][3]),
+                           creff_mma::pack_bf16(acc[1][0], acc[1][1]),
+                           creff_mma::pack_bf16(acc[1][2], acc[1][3])};
+    const int ch = c0 + 2 * t;
+#pragma unroll
+    for (int ct = 0; ct < CLASS_TILES; ++ct) {
+      if (8 * ct >= n_classes) break;
+      const int cls = 8 * ct + g;
+      const uint32_t b0 = creff_mma::pack_bf16(wt(ch, cls), wt(ch + 1, cls));
+      const uint32_t b1 = creff_mma::pack_bf16(wt(ch + 8, cls), wt(ch + 9, cls));
+      creff_mma::mma(logit[ct], a, b0, b1);
+    }
+  }
+
+  __device__ __forceinline__ void finish(const creff_mma::Seg& seg) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // this lane's classes 8ct + 2t + e in increasing order: strict '>'
+      // keeps the lowest index of a tie; best < 0 until a class is seen
+      float best_v = 0.0f;
+      int best = -1;
+#pragma unroll
+      for (int ct = 0; ct < CLASS_TILES; ++ct)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cls = 8 * ct + 2 * t + e;
+          if (cls < n_classes) {
+            const float v = logit[ct][2 * r + e] + __ldg(fc_b + cls);
+            if (best < 0 || v > best_v) {
+              best_v = v;
+              best = cls;
+            }
+          }
+        }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best_v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, best, off);
+        if (oi >= 0 && (best < 0 || ov > best_v || (ov == best_v && oi < best))) {
+          best_v = ov;
+          best = oi;
+        }
+      }
+      const int px = g + 8 * r;
+      if (t == 0 && px < seg.n_valid) out[seg.pix0 + px] = best;
+    }
+  }
+};
 
 }  // namespace
 
@@ -92,10 +156,21 @@ extern "C" int arseg_creff_phase2_argmax(int32_t* out, const void* lr_up, const 
       n_classes < 1 || n_classes > MAX_CLASSES)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run<float>(out, lr_up, ref, taps, bias, fc_w, fc_b, n, h, w, c, n_classes, kh, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(out, lr_up, ref, taps, bias, fc_w, fc_b, n, h, w, c, n_classes,
-                              kh, s);
+  if (dtype == 0) {
+    ArgmaxHead epi{};
+    epi.out = out;
+    epi.fc_w = fc_w;
+    epi.fc_b = fc_b;
+    epi.n_classes = n_classes;
+    return creff::launch_k<float>(lr_up, ref, taps, bias, n, h, w, c, kh, epi, s);
+  }
+  if (dtype == 1) {
+    ArgmaxHeadMma epi{};
+    epi.out = out;
+    epi.fc_w = fc_w;
+    epi.fc_b = fc_b;
+    epi.n_classes = n_classes;
+    return creff_mma::launch_k(lr_up, ref, taps, bias, n, h, w, c, kh, epi, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

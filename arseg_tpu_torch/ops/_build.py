@@ -36,7 +36,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES = ("creff_qkv_fused.cu", "creff_phase2_argmax.cu", "creff_attention.cu",
                   "creff_phase2_upsample_argmax.cu", "warp_bilinear.cu")
-HEADERS = ("kernels.h", "creff_module.cuh")
+HEADERS = ("kernels.h", "creff_module.cuh", "creff_module_mma.cuh")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17"]
 

@@ -20,7 +20,7 @@ take.
 import torch
 
 from arseg_tpu_torch.ops import _build
-from arseg_tpu_torch.ops.creff_kernel import CHANNEL_CHUNK, creff_qkv_fused_plain
+from arseg_tpu_torch.ops.creff_kernel import CHANNEL_CHUNK, aligned16, creff_qkv_fused_plain
 
 NAME = "creff_phase2_argmax"
 MAX_CLASSES = 19  # csrc/creff_phase2_argmax.cu MAX_CLASSES
@@ -60,8 +60,8 @@ def creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
 
 def check_head_args(name, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
     """Raise on what the module + head kernels (K3, K5) do not take; else
-    (lr_up, ref, [taps, bias, fc_w, fc_b]) contiguous, the last four in
-    float32."""
+    (lr_up, ref, [taps, bias, fc_w, fc_b]) contiguous and 16-byte aligned,
+    the last four in float32."""
     if lr_up.dim() != 4 or lr_up.shape != ref.shape:
         raise ValueError(f"lr_up {tuple(lr_up.shape)} and ref {tuple(ref.shape)} must be one NHWC shape")
     if lr_up.dtype != ref.dtype or lr_up.dtype not in (torch.float32, torch.bfloat16):
@@ -81,5 +81,5 @@ def check_head_args(name, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
     devs = {t.device for t in (lr_up, ref, taps, bias, fc_w, fc_b)}
     if len(devs) != 1:
         raise ValueError(f"{name} inputs must be on one device, got {devs}")
-    args = [x.float().contiguous() for x in (taps, bias, fc_w, fc_b)]
-    return lr_up.contiguous(), ref.contiguous(), args
+    args = [aligned16(x.float()) for x in (taps, bias, fc_w, fc_b)]
+    return aligned16(lr_up), aligned16(ref), args

@@ -22,6 +22,13 @@ NAME = "creff_qkv_fused"
 CHANNEL_CHUNK = 16  # csrc/creff_qkv_fused.cu CC
 
 
+def aligned16(x):
+    """x contiguous, copied if its data does not start on 16 bytes (the
+    bfloat16 body stages its halos, taps and biases with 16-byte copies)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def pack_qkv(q_w, q_b, k_w, k_b, v_w, v_b):
     """Torch depthwise weights [C, 1, 3, 3] and biases [C] of the three
     convs -> (taps [3, 9, C], bias [3, C]) float32, tap a*3+b."""
@@ -85,10 +92,10 @@ def creff_qkv_fused(lr_up, ref, taps, bias, kh, kw):
     devs = {t.device for t in (lr_up, ref, taps, bias)}
     if len(devs) != 1:
         raise ValueError(f"{NAME} inputs must be on one device, got {devs}")
-    lr_up = lr_up.contiguous()
-    ref = ref.contiguous()
-    taps = taps.float().contiguous()
-    bias = bias.float().contiguous()
+    lr_up = aligned16(lr_up)
+    ref = aligned16(ref)
+    taps = aligned16(taps.float())
+    bias = aligned16(bias.float())
     out = torch.empty_like(lr_up)
     _build.kernels().creff_qkv_fused(out, lr_up, ref, taps, bias, int(kh), int(kw))
     _build.LAUNCHES[NAME] += 1

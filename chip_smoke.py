@@ -16,6 +16,10 @@ Phases, in order; any failure exits non-zero:
      (no path runs it there); kernel, plain and library times (CUDA events,
      median of 20 kernel runs, of 5 plain runs at the 720x960 shapes). Then
      K2 on the flow cases of tests/test_pallas_warp*.py at C=64 and C=256.
+     Then K1 and K3 in bfloat16 (the tensor-core body) at edge shapes
+     (sizes no multiple of the tile, a single row, n = 1, C of 16, 64 and
+     512, windows 3, 5 and 7, 12 and 19 classes), with a tie of two
+     classes and with every logit below zero, printed with its seconds.
   4. camvid-bise18 AR 0.5x, GOP 12, 720x960, bf16, full width, random
      seeded weights: scan_step over 3 GOPs of uint8 frames, with the launch
      counts of every kernel read around that run; then one GOP on the CPU
@@ -233,6 +237,14 @@ def check_maps(name, dt, got, logits, shape):
     return agree, int(differ.sum()), gap
 
 
+def _head_params(gen, c, n_classes, dt):
+    from arseg_tpu_torch.ops import creff_head_kernel
+
+    weight = torch.randn(n_classes, c, 1, 1, device="cuda", generator=gen) / c ** 0.5
+    return creff_head_kernel.pack_head(
+        weight, torch.randn(n_classes, device="cuda", generator=gen) * 0.1, dt)
+
+
 def k3_case(gen, dt, n, hw, c, n_classes):
     """K3 at [n, *hw, c] against its plain version: class-map agreement and
     near ties at every disagreement."""
@@ -241,9 +253,7 @@ def k3_case(gen, dt, n, hw, c, n_classes):
     lr_up = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
     ref = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
     taps, bias = _qkv_params(gen, c)
-    weight = torch.randn(n_classes, c, 1, 1, device="cuda", generator=gen) / c ** 0.5
-    fc_w, fc_b = creff_head_kernel.pack_head(
-        weight, torch.randn(n_classes, device="cuda", generator=gen) * 0.1, dt)
+    fc_w, fc_b = _head_params(gen, c, n_classes, dt)
     args = (lr_up, ref, taps, bias, fc_w, fc_b, 7, 7)
     k3 = lambda: creff_head_kernel.creff_phase2_argmax(*args)
     p3 = lambda: creff_head_kernel.creff_phase2_argmax_plain(*args)
@@ -387,6 +397,59 @@ def warp_edge_phase():
           f"largest max|d| {worst:.3e}", flush=True)
 
 
+# (n, h, w, c, window): sizes that are no multiple of the 8 x 32 tile, a
+# single row, n = 1, C of 16, 64 and 512, and each window
+MODULE_EDGE_SHAPES = [
+    (1, 13, 37, 16, 3), (2, 13, 37, 64, 5), (1, 1, 5, 64, 7), (1, 1, 5, 16, 5),
+    (1, 45, 60, 512, 7), (3, 45, 60, 16, 7), (2, 13, 37, 512, 3),
+]
+
+
+def module_edge_phase():
+    """K1 and K3 in bfloat16 (the tensor-core body) against their plain
+    versions, with the main rows' tolerances, at MODULE_EDGE_SHAPES (K3 with
+    12 and 19 classes); then K3 with two classes tied in every pixel (the
+    lower index must win everywhere) and with every logit below zero (the
+    zero columns that pad the classes must never win)."""
+    from arseg_tpu_torch.ops import creff_head_kernel, creff_kernel
+
+    t0 = time.perf_counter()
+    phase("K1 and K3, bf16 tensor-core body, at edge shapes")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = torch.bfloat16
+    for n, h, w, c, k in MODULE_EDGE_SHAPES:
+        print(f"-- [{n},{h},{w},{c}] window {k}", flush=True)
+        lr_up = torch.randn(n, h, w, c, device="cuda", generator=gen).to(dt)
+        ref = torch.randn(n, h, w, c, device="cuda", generator=gen).to(dt)
+        taps, bias = _qkv_params(gen, c)
+        fused = creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, k, k)
+        check("creff_qkv_fused", dt, creff_kernel.creff_qkv_fused(lr_up, ref, taps, bias, k, k),
+              fused)
+        for n_classes in (12, 19):
+            fc_w, fc_b = _head_params(gen, c, n_classes, dt)
+            got = creff_head_kernel.creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b, k, k)
+            check_maps(f"creff_phase2_argmax {n_classes} classes", dt, got,
+                       fused.float() @ fc_w + fc_b, (n, h, w))
+    lr_up = torch.randn(2, 13, 37, 64, device="cuda", generator=gen).to(dt)
+    ref = torch.randn(2, 13, 37, 64, device="cuda", generator=gen).to(dt)
+    taps, bias = _qkv_params(gen, 64)
+    fc_w, fc_b = _head_params(gen, 64, 12, dt)
+    # classes 2 and 9 lie in different n8 tiles and on different lanes
+    fc_w[:, 9] = fc_w[:, 2]
+    fc_b[2] = fc_b[9] = 50.0
+    got = creff_head_kernel.creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b, 7, 7)
+    print(f"creff_phase2_argmax tie of classes 2 and 9: {int((got == 2).sum())} of {got.numel()} "
+          f"pixels take class 2", flush=True)
+    if not bool((got == 2).all()):
+        raise SystemExit("chip_smoke: creff_phase2_argmax does not take the lowest index of a tie")
+    fc_b = torch.full_like(fc_b, -100.0)
+    got = creff_head_kernel.creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b, 7, 7)
+    fused = creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, 7, 7)
+    check_maps("creff_phase2_argmax logits all below 0", dt, got, fused.float() @ fc_w + fc_b,
+               (2, 13, 37))
+    print(f"-- module edge shapes: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def kernel_phase():
     phase("kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -422,6 +485,7 @@ def kernel_phase():
               f"plain_ms={s['plain_ms']:.4f} library_ms={lib} bound_ms={s['bound_ms']:.4f} "
               f"({s['bound_by']}) max_abs_err={s['max_abs_err']:.3e}", flush=True)
     warp_edge_phase()
+    module_edge_phase()
     return stats
 
 

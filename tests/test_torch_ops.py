@@ -276,14 +276,39 @@ def test_warp_kernel_matches_plain_on_card(dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 6e-2)])
-def test_creff_kernel_matches_plain_on_card(dtype, tol):
+@pytest.mark.parametrize("n,h,w,c,k", [(2, 13, 37, 32, 7), (1, 1, 5, 16, 5), (1, 45, 60, 512, 7),
+                                       (3, 13, 37, 64, 3)])
+def test_creff_kernel_matches_plain_on_card(dtype, tol, n, h, w, c, k):
+    """bfloat16 runs the tensor-core body, float32 the CUDA-core one; sizes
+    that are no multiple of the tile, one row, n = 1, C of 16 to 512 and
+    every window."""
     needs_card()
-    lr_up, ref, convs = _creff_case(14, 2, 13, 37, 32)
+    lr_up, ref, convs = _creff_case(14, n, h, w, c)
     taps, bias = creff_kernel.pack_qkv(*_torch_convs(convs))
     a, b = t(lr_up).cuda().to(dtype), t(ref).cuda().to(dtype)
-    got = creff_kernel.creff_qkv_fused(a, b, taps.cuda(), bias.cuda(), 7, 7).float()
-    want = creff_kernel.creff_qkv_fused_plain(a, b, taps.cuda(), bias.cuda(), 7, 7).float()
+    got = creff_kernel.creff_qkv_fused(a, b, taps.cuda(), bias.cuda(), k, k).float()
+    want = creff_kernel.creff_qkv_fused_plain(a, b, taps.cuda(), bias.cuda(), k, k).float()
     assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+
+def test_aligned16_copies_only_misaligned_data():
+    """The bfloat16 body stages with 16-byte copies: the wrappers hand it
+    data that starts on 16 bytes, copying a view that does not."""
+    base = torch.arange(40, dtype=torch.float32).to(torch.bfloat16)
+    view = base[1:33]
+    assert view.data_ptr() % 16 != 0
+    fixed = creff_kernel.aligned16(view)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, view)
+    assert creff_kernel.aligned16(base) is base
+
+
+def test_build_hash_covers_every_kernel_source_and_header():
+    """The library's name hashes KERNEL_SOURCES and HEADERS: each file of
+    csrc must be listed, or an edit to it would load a stale library."""
+    files = {p.name for p in _build.CSRC.iterdir()}
+    assert set(_build.KERNEL_SOURCES) == {f for f in files if f.endswith(".cu")}
+    assert set(_build.HEADERS) == {f for f in files if f.endswith((".cuh", ".h"))}
+    assert "creff_module_mma.cuh" in _build.HEADERS
 
 
 # ---------------------------------------------------------------- package rules

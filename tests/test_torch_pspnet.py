@@ -281,16 +281,35 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
-def test_k3_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("n,h,w,c,ncls,k", [(2, 37, 45, 32, 12, 7), (1, 13, 37, 16, 19, 3),
+                                            (1, 1, 5, 64, 12, 5), (1, 45, 60, 512, 19, 7)])
+def test_k3_kernel_matches_plain_on_card(n, h, w, c, ncls, k):
+    """bfloat16 runs the tensor-core body (with the 1x1 conv on the tensor
+    cores), float32 the CUDA-core one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernel against its plain version)")
-    lr_up, ref, convs, fc_w, fc_b = _head_case(14, 2, 37, 45, 32, 12)
+    lr_up, ref, convs, fc_w, fc_b = _head_case(14, n, h, w, c, ncls)
     for dtype, agree in ((torch.float32, 0.9999), (torch.bfloat16, 0.999)):
         args = [a.cuda() for a in _torch_head_args(convs, fc_w, fc_b, dtype)]
         a, b = t(lr_up).cuda().to(dtype), t(ref).cuda().to(dtype)
-        got = creff_head_kernel.creff_phase2_argmax(a, b, *args, 7, 7)
-        want = creff_head_kernel.creff_phase2_argmax_plain(a, b, *args, 7, 7)
+        got = creff_head_kernel.creff_phase2_argmax(a, b, *args, k, k)
+        want = creff_head_kernel.creff_phase2_argmax_plain(a, b, *args, k, k)
         assert (got == want).float().mean().item() >= agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k3_kernel_ties_take_the_lowest_index_on_card(dtype):
+    """Classes 2 and 9 (in different n8 tiles of the bfloat16 head) tie
+    above the others: the kernel takes class 2 everywhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernel against its plain version)")
+    lr_up, ref, convs, fc_w, fc_b = _head_case(15, 1, 13, 37, 64, 12)
+    fc_w[..., 9] = fc_w[..., 2]
+    fc_b[2] = fc_b[9] = 50.0
+    args = [a.cuda() for a in _torch_head_args(convs, fc_w, fc_b, dtype)]
+    a, b = t(lr_up).cuda().to(dtype), t(ref).cuda().to(dtype)
+    assert torch.all(creff_head_kernel.creff_phase2_argmax(a, b, *args, 7, 7) == 2)
 
 
 # ---------------------------------------------------------------- pipeline

@@ -34,8 +34,9 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 
 WALL_REPEATS = 5
-# K1, K3 and K5 are one kernel template (creff_module.cuh) with the
-# epilogues StoreFused (K1), ArgmaxHead (K3) and UpsampleArgmaxHead (K5);
+# K1, K3 and K5 are the kernel template module_kernel with the epilogues
+# StoreFusedMma (K1) and ArgmaxHeadMma (K3) in bf16 (creff_module_mma.cuh),
+# StoreFused, ArgmaxHead and UpsampleArgmaxHead (K5) on creff_module.cuh;
 # K4 is attention_kernel, K2 warp_bilinear_kernel
 PORT_KERNELS = ("module_kernel", "attention_kernel", "warp_bilinear_kernel")
 
