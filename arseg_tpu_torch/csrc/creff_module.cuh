@@ -1,5 +1,10 @@
-// The fused CReFF module body (MyAttention forward), NHWC, shared by K1
-// (creff_qkv_fused.cu) and K3 (creff_phase2_argmax.cu):
+// The fused CReFF module body (MyAttention forward) on the CUDA cores,
+// NHWC, for float32 inputs only, which only the parity checks use: K1
+// (creff_qkv_fused.cu), K3 (creff_phase2_argmax.cu) and K5
+// (creff_phase2_upsample_argmax.cu, HALO = 1) run it for float32, and K4's
+// float32 kernel (creff_attention.cu) its staging. bfloat16 inputs run the
+// tensor-core body, creff_module_mma.cuh; a TF32 product there would not
+// hold the float32 tolerance. The function:
 //   fused = lr_up + softmax(similar(dw3(lr_up; q), dw3(ref; k))) . dw3(ref; v)
 // over a K x K window, where dw3 is a 3x3 depthwise conv with bias and
 // similar/weighting follow nn.Unfold: window positions outside the image
@@ -15,9 +20,9 @@
 // chunk: stage the ref halo again, compute the V chunk, and each thread sums
 // p . v for its pixel, adds the residual and hands the CC float32 fused
 // values to the epilogue. Shared arrays are channel-major with an odd
-// channel stride, so neighbouring threads read neighbouring words. Q, K, V
-// and p are rounded to the input type as the TPU kernel does; all sums are
-// float32.
+// channel stride, so neighbouring threads read neighbouring words. All sums
+// are float32 (the TPU kernel's roundings of Q, K, V and p to the input
+// type are the identity here).
 //
 // An epilogue is a struct with
 //   static constexpr int HALO;
@@ -34,7 +39,6 @@
 // arrive with inside = false.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,22 +47,6 @@ namespace creff {
 constexpr int TH = 8;   // output tile rows
 constexpr int TW = 16;  // output tile cols (TH * TW threads)
 constexpr int CC = 16;  // channels per chunk
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// round a float32 value to T and back (identity for float32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
 template <int K>
 struct Geom {
@@ -74,9 +62,8 @@ struct Geom {
 
 // Stage rows [ty0, ty0+rows) x cols [tx0, tx0+cols) x channels [c0, c0+CC)
 // of one image into dst[cc * stride + pos] as float32; zero outside it.
-template <typename T>
-__device__ void stage_tile(float* dst, const T* __restrict__ img, int h, int w, int c,
-                           int ty0, int tx0, int rows, int cols, int stride, int c0) {
+__device__ inline void stage_tile(float* dst, const float* __restrict__ img, int h, int w, int c,
+                                  int ty0, int tx0, int rows, int cols, int stride, int c0) {
   const int total = rows * cols * CC;
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
     const int cc = t % CC;
@@ -85,15 +72,15 @@ __device__ void stage_tile(float* dst, const T* __restrict__ img, int h, int w, 
     const int gx = tx0 + pos % cols;
     float v = 0.0f;
     if (gy >= 0 && gy < h && gx >= 0 && gx < w)
-      v = to_f32(img[(static_cast<int64_t>(gy) * w + gx) * c + c0 + cc]);
+      v = img[(static_cast<int64_t>(gy) * w + gx) * c + c0 + cc];
     dst[cc * stride + pos] = v;
   }
 }
 
 // Depthwise 3x3 (+bias) of the staged ref tile at every K/V position of the
-// block, masked to 0 outside the image and rounded to T. Taps are summed in
+// block, masked to 0 outside the image. Taps are summed in
 // the TPU kernel's order (columns outer, rows inner), then the bias.
-template <typename T, int K>
+template <int K>
 __device__ void dw_kv(float* kv, const float* r, const float* __restrict__ taps,
                       const float* __restrict__ bias, int h, int w, int c, int c0,
                       int y0, int x0) {
@@ -119,7 +106,7 @@ __device__ void dw_kv(float* kv, const float* r, const float* __restrict__ taps,
           first = false;
         }
       }
-      acc = round_to<T>(__fadd_rn(acc, bias[c0 + cc]));
+      acc = __fadd_rn(acc, bias[c0 + cc]);
     }
     kv[cc * G::KS + pos] = acc;
   }
@@ -128,9 +115,9 @@ __device__ void dw_kv(float* kv, const float* r, const float* __restrict__ taps,
 // Grid: (ceil(w / SW), ceil(h / SH), n) with SW = TW - 2 HALO and
 // SH = TH - 2 HALO; TH * TW threads; dynamic shared memory
 // Geom<K>::SMEM_FLOATS floats.
-template <typename T, int K, class Epi>
+template <int K, class Epi>
 __global__ void __launch_bounds__(TH* TW)
-    module_kernel(const T* __restrict__ lr, const T* __restrict__ ref,
+    module_kernel(const float* __restrict__ lr, const float* __restrict__ ref,
                   const float* __restrict__ taps, const float* __restrict__ bias, int h, int w,
                   int c, Epi epi_arg) {
   using G = Geom<K>;
@@ -146,8 +133,8 @@ __global__ void __launch_bounds__(TH* TW)
   const int y0 = blockIdx.y * (TH - 2 * HALO) - HALO;
   const int x0 = blockIdx.x * (TW - 2 * HALO) - HALO;
   const int64_t plane = static_cast<int64_t>(h) * w * c;
-  const T* lr_img = lr + blockIdx.z * plane;
-  const T* ref_img = ref + blockIdx.z * plane;
+  const float* lr_img = lr + blockIdx.z * plane;
+  const float* ref_img = ref + blockIdx.z * plane;
   const float* q_taps = taps;
   const float* k_taps = taps + 9 * c;
   const float* v_taps = taps + 18 * c;
@@ -162,7 +149,7 @@ __global__ void __launch_bounds__(TH* TW)
     stage_tile(r_s, ref_img, h, w, c, y0 - G::P - 1, x0 - G::P - 1, G::RH, G::RW, G::RS, c0);
     stage_tile(l_s, lr_img, h, w, c, y0 - 1, x0 - 1, G::LH, G::LW, G::LS, c0);
     __syncthreads();
-    dw_kv<T, K>(kv_s, r_s, k_taps, bias + c, h, w, c, c0, y0, x0);
+    dw_kv<K>(kv_s, r_s, k_taps, bias + c, h, w, c, c0, y0, x0);
     float q[CC];
 #pragma unroll
     for (int cc = 0; cc < CC; ++cc) {
@@ -176,7 +163,7 @@ __global__ void __launch_bounds__(TH* TW)
           acc = (a == 0 && b == 0) ? term : __fadd_rn(acc, term);
         }
       }
-      q[cc] = round_to<T>(__fadd_rn(acc, bias[c0 + cc]));
+      q[cc] = __fadd_rn(acc, bias[c0 + cc]);
     }
     __syncthreads();
 #pragma unroll
@@ -190,7 +177,7 @@ __global__ void __launch_bounds__(TH* TW)
     }
   }
 
-  // ---- softmax in float32, p rounded to T ------------------------------
+  // ---- softmax in float32 ------------------------------------------------
   float m = s[0];
 #pragma unroll
   for (int o = 1; o < K * K; ++o) m = fmaxf(m, s[o]);
@@ -201,7 +188,7 @@ __global__ void __launch_bounds__(TH* TW)
     sum += s[o];
   }
 #pragma unroll
-  for (int o = 0; o < K * K; ++o) s[o] = round_to<T>(s[o] / sum);
+  for (int o = 0; o < K * K; ++o) s[o] = s[o] / sum;
 
   // ---- pass 2: p . v + residual -> epilogue ------------------------------
   const int gy = y0 + py;
@@ -212,7 +199,7 @@ __global__ void __launch_bounds__(TH* TW)
     __syncthreads();
     stage_tile(r_s, ref_img, h, w, c, y0 - G::P - 1, x0 - G::P - 1, G::RH, G::RW, G::RS, c0);
     __syncthreads();
-    dw_kv<T, K>(kv_s, r_s, v_taps, bias + 2 * c, h, w, c, c0, y0, x0);
+    dw_kv<K>(kv_s, r_s, v_taps, bias + 2 * c, h, w, c, c0, y0, x0);
     __syncthreads();
     if (inside) {
       float acc[CC];
@@ -228,39 +215,39 @@ __global__ void __launch_bounds__(TH* TW)
           for (int cc = 0; cc < CC; ++cc) acc[cc] = fmaf(p, vb[cc * G::KS], acc[cc]);
         }
       }
-      const T* res = lr_img + (static_cast<int64_t>(gy) * w + gx) * c + c0;
+      const float* res = lr_img + (static_cast<int64_t>(gy) * w + gx) * c + c0;
 #pragma unroll
-      for (int cc = 0; cc < CC; ++cc) acc[cc] = to_f32(res[cc]) + acc[cc];
+      for (int cc = 0; cc < CC; ++cc) acc[cc] = res[cc] + acc[cc];
       epi.chunk(pixel, c0, acc);
     }
   }
   epi.finish(pixel, inside);
 }
 
-template <typename T, int K, class Epi>
+template <int K, class Epi>
 int launch(const void* lr, const void* ref, const float* taps, const float* bias, int n, int h,
            int w, int c, const Epi& epi, cudaStream_t stream) {
   if (n == 0) return 0;
   const size_t smem = sizeof(float) * Geom<K>::SMEM_FLOATS;
-  cudaError_t err = cudaFuncSetAttribute(module_kernel<T, K, Epi>,
+  cudaError_t err = cudaFuncSetAttribute(module_kernel<K, Epi>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int SH = TH - 2 * Epi::HALO, SW = TW - 2 * Epi::HALO;  // tile strides
   const dim3 grid((w + SW - 1) / SW, (h + SH - 1) / SH, n);
-  module_kernel<T, K, Epi><<<grid, TH * TW, smem, stream>>>(
-      static_cast<const T*>(lr), static_cast<const T*>(ref), taps, bias, h, w, c, epi);
+  module_kernel<K, Epi><<<grid, TH * TW, smem, stream>>>(
+      static_cast<const float*>(lr), static_cast<const float*>(ref), taps, bias, h, w, c, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K in {3, 5, 7}; any other window is refused.
-template <typename T, class Epi>
+template <class Epi>
 int launch_k(const void* lr, const void* ref, const float* taps, const float* bias, int n, int h,
              int w, int c, int k, const Epi& epi, cudaStream_t stream) {
   switch (k) {
-    case 3: return launch<T, 3>(lr, ref, taps, bias, n, h, w, c, epi, stream);
-    case 5: return launch<T, 5>(lr, ref, taps, bias, n, h, w, c, epi, stream);
-    case 7: return launch<T, 7>(lr, ref, taps, bias, n, h, w, c, epi, stream);
+    case 3: return launch<3>(lr, ref, taps, bias, n, h, w, c, epi, stream);
+    case 5: return launch<5>(lr, ref, taps, bias, n, h, w, c, epi, stream);
+    case 7: return launch<7>(lr, ref, taps, bias, n, h, w, c, epi, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

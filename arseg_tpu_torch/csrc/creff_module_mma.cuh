@@ -1,18 +1,32 @@
 // The fused CReFF module body (MyAttention forward) for bfloat16 on the
-// tensor cores, NHWC, used by K1 (creff_qkv_fused.cu) and K3
-// (creff_phase2_argmax.cu) for bf16 inputs:
+// tensor cores, NHWC:
 //   fused = lr_up + softmax(similar(dw3(lr_up; q), dw3(ref; k))) . dw3(ref; v)
 // over a K x K window (K in {3, 5, 7}), any h, w >= 1, C % 16 == 0. Same
-// function and rounding points as creff_module.cuh (which now serves the
-// float32 inputs and K5): Q, K, V and p rounded to bf16, every sum float32.
+// function and rounding points as creff_module.cuh (which serves the
+// float32 inputs): Q, K, V and p rounded to bf16, every sum float32.
+//
+// Its users, all for bf16 inputs:
+// - module_kernel with an epilogue: K1 (creff_qkv_fused.cu, HALO = 0,
+//   stores the fused feature), K3 (creff_phase2_argmax.cu, HALO = 0, 1x1
+//   conv on the tensor cores and argmax) and K5
+//   (creff_phase2_upsample_argmax.cu, HALO = 1: overlapping tiles, 1x1
+//   conv in float32, x8 upsample and argmax in shared memory).
+// - The window products and the band softmax alone, as device functions
+//   (window_logits, band_softmax, window_pv, zero_kv_pad): module_kernel
+//   and K4 (creff_attention.cu, on Q, K and V the caller computed, with no
+//   convs and no residual) run the same code.
 //
 // Design for Hopper:
 // - Warp = one pixel-row segment. A warp owns 16 consecutive pixels of one
 //   output row, the m16 of mma.sync.m16n8k16 (bf16 in, f32 accumulate).
 //   A block is TH = 16 rows x TW = 16 columns, 16 warps, one block per SM
-//   at 128 registers a thread. Its K/V depthwise convs cover
-//   (16 + K - 1)^2 positions for 256 outputs: 484 / 256 = 1.89x at K = 7
-//   (the CUDA-core body's 8 x 16 tile: 308 / 128 = 2.41x). The other
+//   at 128 registers a thread. With HALO = 1 a tile starts one row and one
+//   column before its 14 x 14 interior (Seg gives each segment its valid
+//   columns, the first of which may lie at image column -1); the ring
+//   outside the image is computed on zero-filled halos. Its K/V depthwise
+//   convs cover (16 + K - 1)^2 positions for 256 outputs: 484 / 256 =
+//   1.89x at K = 7 (the CUDA-core body's 8 x 16 tile: 308 / 128 =
+//   2.41x). The other
 //   shapes tried on the card (8 x 16, 8 x 32, 4 x 32) were not faster;
 //   16 x 16 has the smallest halo of them.
 // - Logits on the tensor cores. For each window row dy the warp forms
@@ -58,14 +72,21 @@
 // bound, and at ~29% band use mma.sync is not the limit by count.
 //
 // Epilogue interface (per warp, per 16-channel chunk): a struct with
-//   __device__ void chunk(const Seg& seg, int c0, const float acc[2][4]);
-//   __device__ void finish(const Seg& seg);
-// acc is the chunk's [16 px, 16 ch] float32 fused fragment in mma.sync's
+//   static constexpr int HALO;   // 0: tiles partition the image; 1: they overlap
+//   struct State;                // per-thread sums, zero-initialised
+//   __device__ void chunk(State&, const Seg& seg, int c0, const float acc[2][4]) const;
+//   __device__ void finish(State&, const Seg& seg) const;
+// The struct itself is a __grid_constant__ kernel parameter: its fields
+// (pointers, sizes) are read from the parameter bank and hold no
+// registers through the chunk loop; only State lives in registers. acc is
+// the chunk's [16 px, 16 ch] float32 fused fragment in mma.sync's
 // accumulator layout: acc[nt][2r + e] is pixel g + 8r, channel
 // c0 + 8nt + 2t + e, with g = lane / 4, t = lane % 4. chunk() is called by
 // every lane of every warp once per chunk in order (so it may use
 // __syncwarp and the segment's shared scratch); finish() once after the
-// last chunk. Seg says which of the 16 pixels lie in the image.
+// last chunk, by every thread of the block (so it may synchronise the
+// block, after which the module's shared memory is free). Seg says which
+// of the 16 pixels lie in the image.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,6 +102,7 @@ constexpr int MIN_BLOCKS = 65536 / (NT * 128);  // blocks per SM at 128 register
 constexpr int VR = 2;         // conv output rows per item (their rows share loads)
 constexpr int CC = 16;        // channels per chunk: one k step
 constexpr int PS = 24;        // bf16 per staged position (16 + 8 pad: 48 B)
+constexpr int KVP = TW + 8;   // K/V row stride in positions: the 24 a segment's band spans
 
 template <int K>
 struct Geom {
@@ -88,21 +110,21 @@ struct Geom {
   static constexpr int RH = TH + K + 1, RW = TW + K + 1;  // raw ref halo
   static constexpr int LH = TH + 2, LW = TW + 2;          // raw lr_up halo
   static constexpr int KH = TH + K - 1, KW = TW + K - 1;  // K/V positions
-  static constexpr int KVP = TW + 8;  // K/V row stride in positions
   static constexpr int RBUF = RH * RW * CC, LBUF = LH * LW * CC;  // bf16 each
   static constexpr int KV = KH * KVP * PS, Q = TH * TW * PS;
   static constexpr int TB = 3 * 10 * CC;  // float32: q, k, v x (9 taps, bias) x channel
   // raw halos in a ring of three, K/V and Q double-buffered
   static constexpr int SMEM_BYTES = 2 * (3 * (RBUF + LBUF) + 2 * (KV + Q)) + 4 * 3 * TB;
-  static_assert(KW <= KVP && 24 <= KVP, "K/V row too short");
+  static_assert(KW <= KVP, "K/V row too short");
 };
 
-// this warp's segment: output row gy, first column gx0, and the flat index
-// of its first pixel; n_valid of its 16 pixels lie in the image (0 if the
-// row is outside). scratch: 16 x PS bf16 of shared memory of its own.
+// this warp's segment: the flat index pix0 of its pixel 0 (output row gy,
+// column gx0, which may be -1 with HALO = 1); its pixels lo <= px < hi lie
+// in the image (lo = hi = 0 if the row is outside). scratch: 2 x 16 x PS
+// bf16 (1,536 bytes) of shared memory of its own, free in pass 2.
 struct Seg {
   int64_t pix0;
-  int n_valid;
+  int lo, hi;
   __nv_bfloat16* scratch;
 };
 
@@ -116,6 +138,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n"); }
+// all but the newest group have landed
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n"); }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -244,107 +268,39 @@ __device__ __forceinline__ void dw3(__nv_bfloat16* dst, const __nv_bfloat16* src
   }
 }
 
-// Grid: (ceil(w / TW), ceil(h / TH), n); NT threads; Geom<K>::SMEM_BYTES
-// of dynamic shared memory. Chunks 0..nc-1 are pass 1 (the logits), chunks
-// nc..2nc-1 pass 2 (p . v + residual -> epilogue). Step j of one pipeline
-// over both passes, between one barrier and the next: start the copies of
-// chunk j + 2, convolve chunk j + 1 (K and Q, or V) on the CUDA cores, and
-// multiply chunk j on the tensor cores, so one warp's products overlap
-// another's convs.
-template <int K, class Epi>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
-    module_kernel(const __nv_bfloat16* __restrict__ lr, const __nv_bfloat16* __restrict__ ref,
-                  const float* __restrict__ taps, const float* __restrict__ bias, int h, int w,
-                  int c, Epi epi_arg) {
-  using G = Geom<K>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* rbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [3][RBUF] raw ref
-  __nv_bfloat16* lbuf = rbuf + 3 * G::RBUF;  // [3][LBUF] raw lr_up
-  __nv_bfloat16* kv_s = lbuf + 3 * G::LBUF;  // [2][KH][KVP][PS]: K (pass 1) or V (pass 2)
-  __nv_bfloat16* q_s = kv_s + 2 * G::KV;     // [2][TH * TW][PS]: Q; pass 2: epilogue scratch
-  float* t_s = reinterpret_cast<float*>(q_s + 2 * G::Q);  // [3][TB] taps and biases
+// ---- the window products and the band softmax, shared by module_kernel
+// and K4 (creff_attention.cu). A warp owns the 16 pixels of one segment;
+// q_seg points at their 16 staged Q positions ([position][PS]), kv_row at
+// the first of the K rows of K or V that their windows read (row stride
+// KVP positions; position 0 is the first window column of pixel 0).
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int py = warp;  // the warp's output row in the tile
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int64_t plane = static_cast<int64_t>(h) * w * c;
-  const __nv_bfloat16* lr_img = lr + blockIdx.z * plane;
-  const __nv_bfloat16* ref_img = ref + blockIdx.z * plane;
-  const int nc = c / CC;
-
-  // K/V positions past the tile's KW columns: read by the products, never
-  // written by the convs; zero once in both buffers
-  constexpr int PAD = G::KVP - G::KW;
-  for (int i = threadIdx.x; i < 2 * G::KH * PAD * (CC / 2); i += NT) {
-    const int ch = 2 * (i % (CC / 2)), pos = i / (CC / 2);
-    const int row = pos / PAD, col = G::KW + pos % PAD;  // row over both buffers
-    *reinterpret_cast<uint32_t*>(kv_s + (row * G::KVP + col) * PS + ch) = 0u;
+// s[dy] += Q[16 px, 16 ch] . K[row dy, 24 positions, 16 ch]^T: one
+// 16-channel chunk of the logits, three n8 tiles per window row.
+template <int K>
+__device__ __forceinline__ void window_logits(float (&s)[K][3][4], const __nv_bfloat16* q_seg,
+                                              const __nv_bfloat16* kv_row) {
+  const int lane = threadIdx.x & 31;
+  uint32_t a[4];
+  ldsm_x4(a, q_seg + ((lane & 7) + ((lane >> 3) & 1) * 8) * PS + (lane >> 4) * 8);
+#pragma unroll
+  for (int dy = 0; dy < K; ++dy) {
+    const __nv_bfloat16* kb = kv_row + dy * KVP * PS;
+    uint32_t b[4], b2[2];
+    ldsm_x4(b, kb + ((lane & 7) + (lane >> 4) * 8) * PS + ((lane >> 3) & 1) * 8);
+    ldsm_x2(b2, kb + (16 + (lane & 7)) * PS + ((lane >> 3) & 1) * 8);
+    mma(s[dy][0], a, b[0], b[1]);
+    mma(s[dy][1], a, b[2], b[3]);
+    mma(s[dy][2], a, b2[0], b2[1]);
   }
+}
 
-  auto issue = [&](int j) {  // start the copies of chunk j into ring slot j % 3
-    if (j < 2 * nc)
-      stage_chunk<K>(rbuf + (j % 3) * G::RBUF, lbuf + (j % 3) * G::LBUF, t_s + (j % 3) * G::TB,
-                     ref_img, lr_img, taps, bias, h, w, c, (j % nc) * CC, y0, x0);
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  };
-  auto convolve = [&](int j) {  // chunk j's K and Q, or V, into buffer j & 1
-    const __nv_bfloat16* rb = rbuf + (j % 3) * G::RBUF;
-    const float* tb = t_s + (j % 3) * G::TB;
-    __nv_bfloat16* kv = kv_s + (j & 1) * G::KV;
-    if (j < nc) {
-      dw3<G::RW, G::KH, G::KW, G::KVP, true>(kv, rb, tb + 10 * CC, h, w, y0 - G::P, x0 - G::P);
-      dw3<G::LW, TH, TW, TW, false>(q_s + (j & 1) * G::Q, lbuf + (j % 3) * G::LBUF, tb, h, w, 0,
-                                    0);
-    } else {
-      dw3<G::RW, G::KH, G::KW, G::KVP, true>(kv, rb, tb + 20 * CC, h, w, y0 - G::P, x0 - G::P);
-    }
-  };
-  // one step: chunk j + 1 has landed, start chunk j + 2's copies into the
-  // ring slot of chunk j - 1 and convolve chunk j + 1
-  auto begin_step = [&](int j) {
-    cp_async_wait_all();
-    __syncthreads();  // step j - 1 is done: chunk j's convs are visible
-    issue(j + 2);
-    if (j + 1 < 2 * nc) convolve(j + 1);
-  };
-
-  float s[K][3][4];  // logits: window row dy, n8 tile of positions, fragment
-#pragma unroll
-  for (int dy = 0; dy < K; ++dy)
-#pragma unroll
-    for (int nt = 0; nt < 3; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[dy][nt][e] = 0.0f;
-  uint32_t p[K][3][2];  // p in bf16 pairs: window row, n8 tile, pixel row g + 8r
-
-  issue(0);
-  issue(1);
-  cp_async_wait_all();
-  __syncthreads();
-  convolve(0);
-  // ---- pass 1: S_dy += Q . K_dy^T, 16 channels a step -------------------
-  for (int j = 0; j < nc; ++j) {
-    begin_step(j);
-    const __nv_bfloat16* kv = kv_s + (j & 1) * G::KV + py * G::KVP * PS;
-    uint32_t a[4];
-    ldsm_x4(a, q_s + (j & 1) * G::Q + (py * TW + (lane & 7) + ((lane >> 3) & 1) * 8) * PS +
-                   (lane >> 4) * 8);
-#pragma unroll
-    for (int dy = 0; dy < K; ++dy) {
-      const __nv_bfloat16* kb = kv + dy * G::KVP * PS;
-      uint32_t b[4], b2[2];
-      ldsm_x4(b, kb + ((lane & 7) + (lane >> 4) * 8) * PS + ((lane >> 3) & 1) * 8);
-      ldsm_x2(b2, kb + (16 + (lane & 7)) * PS + ((lane >> 3) & 1) * 8);
-      mma(s[dy][0], a, b[0], b[1]);
-      mma(s[dy][1], a, b[2], b[3]);
-      mma(s[dy][2], a, b2[0], b2[1]);
-    }
-  }
-
-  // ---- softmax over the band, p rounded to bf16 --------------------------
-  // column col = 8 nt + 2t + e of row r is window position col - px of
-  // pixel px = g + 8r, inside the window iff px <= col < px + K
+// Softmax over the band, p rounded to bf16. Column col = 8 nt + 2t + e of
+// row r is window position col - px of pixel px = g + 8r, inside the
+// window iff px <= col < px + K; off-band entries of p are exactly 0. A
+// pixel's row lives on the four lanes of a quad.
+template <int K>
+__device__ __forceinline__ void band_softmax(float (&s)[K][3][4], uint32_t (&p)[K][3][2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int px = g + 8 * r;
@@ -380,22 +336,143 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       for (int nt = 0; nt < 3; ++nt)
         p[dy][nt][r] = pack_bf16(s[dy][nt][2 * r] / sum, s[dy][nt][2 * r + 1] / sum);
   }
+}
+
+// pv += p . V[row dy, positions, 16 ch] over the window rows: positions
+// 0..15 of the band as one k16 step, 16..23 as one k8 step (a pixel's
+// window ends at position 15 + K - 1 <= 21). pv[nt][2r + e] is pixel
+// g + 8r, channel 8 nt + 2t + e of the chunk.
+template <int K>
+__device__ __forceinline__ void window_pv(float (&pv)[2][4], const uint32_t (&p)[K][3][2],
+                                          const __nv_bfloat16* kv_row) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int dy = 0; dy < K; ++dy) {
+    const __nv_bfloat16* vb = kv_row + dy * KVP * PS;
+    uint32_t b[4], b2[2];
+    ldsm_x4_t(b, vb + ((lane & 7) + ((lane >> 3) & 1) * 8) * PS + (lane >> 4) * 8);
+    ldsm_x2_t(b2, vb + (16 + (lane & 7)) * PS + ((lane >> 3) & 1) * 8);
+    const uint32_t a[4] = {p[dy][0][0], p[dy][0][1], p[dy][1][0], p[dy][1][1]};
+    const uint32_t a2[2] = {p[dy][2][0], p[dy][2][1]};
+    mma(pv[0], a, b[0], b[1]);
+    mma(pv[1], a, b[2], b[3]);
+    mma_k8(pv[0], a2, b2[0]);
+    mma_k8(pv[1], a2, b2[1]);
+  }
+}
+
+// K/V positions KW..KVP-1 of `rows` rows at kv: read by the products,
+// never written by a copy or a conv; zeroed once so that p = 0 never meets
+// stale memory (0 x NaN).
+template <int KW, int THREADS>
+__device__ __forceinline__ void zero_kv_pad(__nv_bfloat16* kv, int rows) {
+  constexpr int PAD = KVP - KW;
+  for (int i = threadIdx.x; i < rows * PAD * (CC / 2); i += THREADS) {
+    const int ch = 2 * (i % (CC / 2)), pos = i / (CC / 2);
+    const int row = pos / PAD, col = KW + pos % PAD;
+    *reinterpret_cast<uint32_t*>(kv + (row * KVP + col) * PS + ch) = 0u;
+  }
+}
+
+// Grid: (ceil(w / SW), ceil(h / SH), n) with SW = TW - 2 HALO and
+// SH = TH - 2 HALO; NT threads; Geom<K>::SMEM_BYTES of dynamic shared
+// memory. With Epi::HALO = 0 the tiles partition the image; with HALO = 1
+// a block's 16 x 16 tile starts one row and one column before its 14 x 14
+// interior, so neighbouring tiles overlap by two pixels. Chunks 0..nc-1
+// are pass 1 (the logits), chunks nc..2nc-1 pass 2 (p . v + residual ->
+// epilogue). Step j of one pipeline over both passes, between one barrier
+// and the next: start the copies of chunk j + 2, convolve chunk j + 1 (K
+// and Q, or V) on the CUDA cores, and multiply chunk j on the tensor
+// cores, so one warp's products overlap another's convs.
+template <int K, class Epi>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    module_kernel(const __nv_bfloat16* __restrict__ lr, const __nv_bfloat16* __restrict__ ref,
+                  const float* __restrict__ taps, const float* __restrict__ bias, int h, int w,
+                  int c, const __grid_constant__ Epi epi) {
+  using G = Geom<K>;
+  constexpr int HALO = Epi::HALO;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* rbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [3][RBUF] raw ref
+  __nv_bfloat16* lbuf = rbuf + 3 * G::RBUF;  // [3][LBUF] raw lr_up
+  __nv_bfloat16* kv_s = lbuf + 3 * G::LBUF;  // [2][KH][KVP][PS]: K (pass 1) or V (pass 2)
+  __nv_bfloat16* q_s = kv_s + 2 * G::KV;     // [2][TH * TW][PS]: Q; pass 2: epilogue scratch
+  float* t_s = reinterpret_cast<float*>(q_s + 2 * G::Q);  // [3][TB] taps and biases
+
+  const int warp = threadIdx.x >> 5;
+  const int py = warp;  // the warp's output row in the tile
+  const int y0 = blockIdx.y * (TH - 2 * HALO) - HALO, x0 = blockIdx.x * (TW - 2 * HALO) - HALO;
+  const int64_t plane = static_cast<int64_t>(h) * w * c;
+  const __nv_bfloat16* lr_img = lr + blockIdx.z * plane;
+  const __nv_bfloat16* ref_img = ref + blockIdx.z * plane;
+  const int nc = c / CC;
+
+  zero_kv_pad<G::KW, NT>(kv_s, 2 * G::KH);  // rows of both buffers
+
+  auto issue = [&](int j) {  // start the copies of chunk j into ring slot j % 3
+    if (j < 2 * nc)
+      stage_chunk<K>(rbuf + (j % 3) * G::RBUF, lbuf + (j % 3) * G::LBUF, t_s + (j % 3) * G::TB,
+                     ref_img, lr_img, taps, bias, h, w, c, (j % nc) * CC, y0, x0);
+    cp_async_commit();  // an empty group past the end keeps the count uniform
+  };
+  auto convolve = [&](int j) {  // chunk j's K and Q, or V, into buffer j & 1
+    const __nv_bfloat16* rb = rbuf + (j % 3) * G::RBUF;
+    const float* tb = t_s + (j % 3) * G::TB;
+    __nv_bfloat16* kv = kv_s + (j & 1) * G::KV;
+    if (j < nc) {
+      dw3<G::RW, G::KH, G::KW, KVP, true>(kv, rb, tb + 10 * CC, h, w, y0 - G::P, x0 - G::P);
+      dw3<G::LW, TH, TW, TW, false>(q_s + (j & 1) * G::Q, lbuf + (j % 3) * G::LBUF, tb, h, w, 0,
+                                    0);
+    } else {
+      dw3<G::RW, G::KH, G::KW, KVP, true>(kv, rb, tb + 20 * CC, h, w, y0 - G::P, x0 - G::P);
+    }
+  };
+  // one step: chunk j + 1 has landed, start chunk j + 2's copies into the
+  // ring slot of chunk j - 1 and convolve chunk j + 1
+  auto begin_step = [&](int j) {
+    cp_async_wait_all();
+    __syncthreads();  // step j - 1 is done: chunk j's convs are visible
+    issue(j + 2);
+    if (j + 1 < 2 * nc) convolve(j + 1);
+  };
+
+  float s[K][3][4];  // logits: window row dy, n8 tile of positions, fragment
+#pragma unroll
+  for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+    for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[dy][nt][e] = 0.0f;
+  uint32_t p[K][3][2];  // p in bf16 pairs: window row, n8 tile, pixel row g + 8r
+
+  issue(0);
+  issue(1);
+  cp_async_wait_all();
+  __syncthreads();
+  convolve(0);
+  // ---- pass 1: S_dy += Q . K_dy^T, 16 channels a step -------------------
+  for (int j = 0; j < nc; ++j) {
+    begin_step(j);
+    window_logits<K>(s, q_s + (j & 1) * G::Q + py * TW * PS,
+                     kv_s + (j & 1) * G::KV + py * KVP * PS);
+  }
+  band_softmax<K>(s, p);
 
   // ---- pass 2: p . V_dy + residual -> epilogue, 16 channels a step -------
-  // positions 0..15 of the band as one k16 step, 16..23 as one k8 step (a
-  // pixel's window ends at position 15 + K - 1 <= 21). The epilogue's state
-  // comes to registers only now, when the logits are gone.
-  Epi epi = epi_arg;
+  // The epilogue's state comes to registers only now, when the logits are
+  // gone.
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  typename Epi::State st{};
   Seg seg;
   {
-    const int gy = y0 + py, gx0 = x0;
-    seg.n_valid = gy < h ? max(0, min(16, w - gx0)) : 0;
-    seg.pix0 = (static_cast<int64_t>(blockIdx.z) * h + gy) * w + gx0;
-    seg.scratch = q_s + py * TW * PS;
+    const int gy = y0 + py;
+    const bool row_in = gy >= 0 && gy < h;
+    seg.lo = row_in ? max(0, -x0) : 0;
+    seg.hi = row_in ? max(seg.lo, min(TW, w - x0)) : 0;
+    seg.pix0 = (static_cast<int64_t>(blockIdx.z) * h + gy) * w + x0;
+    seg.scratch = q_s + py * 2 * TW * PS;  // both Q buffers: free in pass 2
   }
   for (int j = nc; j < 2 * nc; ++j) {
     begin_step(j);
-    const __nv_bfloat16* kv = kv_s + (j & 1) * G::KV + py * G::KVP * PS;
     const __nv_bfloat16* lb = lbuf + (j % 3) * G::LBUF;  // the residual lr_up
     float acc[2][4];
 #pragma unroll
@@ -408,26 +485,14 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
         acc[nt][2 * r + 1] = v.y;
       }
     float pv[2][4] = {};
-#pragma unroll
-    for (int dy = 0; dy < K; ++dy) {
-      const __nv_bfloat16* vb = kv + dy * G::KVP * PS;
-      uint32_t b[4], b2[2];
-      ldsm_x4_t(b, vb + ((lane & 7) + ((lane >> 3) & 1) * 8) * PS + (lane >> 4) * 8);
-      ldsm_x2_t(b2, vb + (16 + (lane & 7)) * PS + ((lane >> 3) & 1) * 8);
-      const uint32_t a[4] = {p[dy][0][0], p[dy][0][1], p[dy][1][0], p[dy][1][1]};
-      const uint32_t a2[2] = {p[dy][2][0], p[dy][2][1]};
-      mma(pv[0], a, b[0], b[1]);
-      mma(pv[1], a, b[2], b[3]);
-      mma_k8(pv[0], a2, b2[0]);
-      mma_k8(pv[1], a2, b2[1]);
-    }
+    window_pv<K>(pv, p, kv_s + (j & 1) * G::KV + py * KVP * PS);
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] += pv[nt][e];
-    epi.chunk(seg, (j - nc) * CC, acc);
+    epi.chunk(st, seg, (j - nc) * CC, acc);
   }
-  epi.finish(seg);
+  epi.finish(st, seg);
 }
 
 template <int K, class Epi>
@@ -441,7 +506,8 @@ int launch(const void* lr, const void* ref, const float* taps, const float* bias
   cudaError_t err = cudaFuncSetAttribute(module_kernel<K, Epi>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
+  constexpr int SH = TH - 2 * Epi::HALO, SW = TW - 2 * Epi::HALO;  // tile strides
+  const dim3 grid((w + SW - 1) / SW, (h + SH - 1) / SH, n);
   module_kernel<K, Epi><<<grid, NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(lr), static_cast<const __nv_bfloat16*>(ref), taps, bias,
       h, w, c, epi);

@@ -31,7 +31,7 @@
 // held there by its 128 registers a thread (PERF.md).
 //
 // ptxas (tools_torch_ptxas.py, CUDA 12.8, sm_90a), bf16 body with this
-// epilogue: K = 7: 128 registers, 96 bytes spilled; K = 5: 128 registers,
+// epilogue: K = 7: 128 registers, 64 bytes spilled; K = 5: 128 registers,
 // no spills; K = 3: 126 registers, no spills. Dynamic shared memory
 // 167,424 / 153,984 / 141,312 bytes (creff_module_mma.cuh).
 
@@ -81,18 +81,22 @@ struct ArgmaxHead {  // float32, CUDA-core body
 };
 
 struct ArgmaxHeadMma {  // bfloat16, tensor-core body
+  static constexpr int HALO = 0;
+  struct State {
+    float logit[CLASS_TILES][4];  // accumulator tiles
+  };
   int32_t* out;       // [n, h, w]
   const float* fc_w;  // [c, n_classes], values of bf16
   const float* fc_b;  // [n_classes]
   int n_classes;
-  float logit[CLASS_TILES][4];  // zero in the launch argument; accumulator tiles
 
   // fc_w[ch][cls] as bf16, zero for padded classes
   __device__ __forceinline__ float wt(int ch, int cls) const {
     return cls < n_classes ? __ldg(fc_w + ch * n_classes + cls) : 0.0f;
   }
 
-  __device__ __forceinline__ void chunk(const creff_mma::Seg&, int c0, const float acc[2][4]) {
+  __device__ __forceinline__ void chunk(State& st, const creff_mma::Seg&, int c0,
+                                        const float acc[2][4]) const {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const uint32_t a[4] = {creff_mma::pack_bf16(acc[0][0], acc[0][1]),
                            creff_mma::pack_bf16(acc[0][2], acc[0][3]),
@@ -105,11 +109,11 @@ struct ArgmaxHeadMma {  // bfloat16, tensor-core body
       const int cls = 8 * ct + g;
       const uint32_t b0 = creff_mma::pack_bf16(wt(ch, cls), wt(ch + 1, cls));
       const uint32_t b1 = creff_mma::pack_bf16(wt(ch + 8, cls), wt(ch + 9, cls));
-      creff_mma::mma(logit[ct], a, b0, b1);
+      creff_mma::mma(st.logit[ct], a, b0, b1);
     }
   }
 
-  __device__ __forceinline__ void finish(const creff_mma::Seg& seg) {
+  __device__ __forceinline__ void finish(State& st, const creff_mma::Seg& seg) const {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -123,7 +127,7 @@ struct ArgmaxHeadMma {  // bfloat16, tensor-core body
         for (int e = 0; e < 2; ++e) {
           const int cls = 8 * ct + 2 * t + e;
           if (cls < n_classes) {
-            const float v = logit[ct][2 * r + e] + __ldg(fc_b + cls);
+            const float v = st.logit[ct][2 * r + e] + __ldg(fc_b + cls);
             if (best < 0 || v > best_v) {
               best_v = v;
               best = cls;
@@ -140,7 +144,7 @@ struct ArgmaxHeadMma {  // bfloat16, tensor-core body
         }
       }
       const int px = g + 8 * r;
-      if (t == 0 && px < seg.n_valid) out[seg.pix0 + px] = best;
+      if (t == 0 && px >= seg.lo && px < seg.hi) out[seg.pix0 + px] = best;
     }
   }
 };
@@ -162,14 +166,10 @@ extern "C" int arseg_creff_phase2_argmax(int32_t* out, const void* lr_up, const 
     epi.fc_w = fc_w;
     epi.fc_b = fc_b;
     epi.n_classes = n_classes;
-    return creff::launch_k<float>(lr_up, ref, taps, bias, n, h, w, c, kh, epi, s);
+    return creff::launch_k(lr_up, ref, taps, bias, n, h, w, c, kh, epi, s);
   }
   if (dtype == 1) {
-    ArgmaxHeadMma epi{};
-    epi.out = out;
-    epi.fc_w = fc_w;
-    epi.fc_b = fc_b;
-    epi.n_classes = n_classes;
+    const ArgmaxHeadMma epi{out, fc_w, fc_b, n_classes};
     return creff_mma::launch_k(lr_up, ref, taps, bias, n, h, w, c, kh, epi, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

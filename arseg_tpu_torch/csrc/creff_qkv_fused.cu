@@ -49,11 +49,13 @@ struct StoreFused {  // float32, CUDA-core body
 };
 
 struct StoreFusedMma {  // bfloat16, tensor-core body
+  static constexpr int HALO = 0;
+  struct State {};
   __nv_bfloat16* out;  // [n, h, w, c]
   int c;
 
-  __device__ __forceinline__ void chunk(const creff_mma::Seg& seg, int c0,
-                                        const float acc[2][4]) {
+  __device__ __forceinline__ void chunk(State&, const creff_mma::Seg& seg, int c0,
+                                        const float acc[2][4]) const {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     __syncwarp();  // the previous chunk's stores have read the scratch
 #pragma unroll
@@ -64,11 +66,11 @@ struct StoreFusedMma {  // bfloat16, tensor-core body
             creff_mma::pack_bf16(acc[nt][2 * r], acc[nt][2 * r + 1]);
     __syncwarp();
     const int px = lane >> 1, half = (lane & 1) * 8;
-    if (px < seg.n_valid)
+    if (px >= seg.lo && px < seg.hi)
       *reinterpret_cast<uint4*>(out + (seg.pix0 + px) * c + c0 + half) =
           *reinterpret_cast<const uint4*>(seg.scratch + px * creff_mma::PS + half);
   }
-  __device__ __forceinline__ void finish(const creff_mma::Seg&) {}
+  __device__ __forceinline__ void finish(State&, const creff_mma::Seg&) const {}
 };
 
 }  // namespace
@@ -81,7 +83,7 @@ extern "C" int arseg_creff_qkv_fused(void* out, const void* lr_up, const void* r
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const StoreFused epi{static_cast<float*>(out), c};
-    return creff::launch_k<float>(lr_up, ref, taps, bias, n, h, w, c, kh, epi, s);
+    return creff::launch_k(lr_up, ref, taps, bias, n, h, w, c, kh, epi, s);
   }
   if (dtype == 1) {
     if (reinterpret_cast<uintptr_t>(out) & 15) return static_cast<int>(cudaErrorMisalignedAddress);

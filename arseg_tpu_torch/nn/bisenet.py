@@ -28,11 +28,12 @@ from arseg_tpu_torch.ops.resize import resize_bilinear
 
 # The fused inference head (CReFF + final_conv + x8 upsample + argmax in one
 # kernel, K5: ops/creff_upsample_head_kernel.py), as the JAX package's
-# USE_FUSED_UPSAMPLE_HEAD. Off, as there, on a measurement of the card's
-# own: in three alternating pairs of tools_torch_profile_gop.py runs on
-# camvid-bise18 (H100, 700 W) K5's head took 0.52-0.55 ms more device time
-# per GOP than K1 + the planes head, and won one pair of three on the wall
-# clock (PERF.md, section 6).
+# USE_FUSED_UPSAMPLE_HEAD. Off, as there. In five alternating pairs of
+# tools_torch_profile_gop.py runs on camvid-bise18 (NVIDIA H100 80GB HBM3,
+# 700 W) K5's head took 0.98 ms less device time per GOP than K1 + the
+# planes head (5.384 against 6.361 ms) but won only two pairs of five on
+# the wall clock: the path is host-bound, so the gain does not show yet
+# (PERF.md, section 6).
 USE_FUSED_UPSAMPLE_HEAD = False
 
 

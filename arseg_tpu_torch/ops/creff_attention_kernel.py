@@ -9,11 +9,16 @@ every fusion variant of the "local" family except "local" itself:
 
 over a kh x kw window, NHWC, q, k and v of one shape, without the
 [N, H, W, kh*kw] weights in device memory. Window positions outside the
-image give logit 0 and value 0, as ``nn.Unfold`` does. The source note in
-the ``.cu`` file says what bounds the kernel and how it is laid out.
+image give logit 0 and value 0, as ``nn.Unfold`` does. bfloat16 runs the
+tensor-core window products of ``csrc/creff_module_mma.cuh`` (``mma.sync``,
+``cp.async`` copies two chunks ahead); float32, which only the parity
+checks use, runs a CUDA-core window loop. The source note in the ``.cu``
+file says what bounds the kernel and how it is laid out.
 
 ``creff_attention`` takes the plain version for a CPU tensor and launches
-the kernel for a CUDA tensor, raising on what the kernel does not take.
+the kernel for a CUDA tensor, raising on what the kernel does not take:
+the bfloat16 kernel copies 16 bytes at a time, so its tensors' data must
+start on 16 bytes.
 """
 
 import torch
@@ -54,6 +59,9 @@ def creff_attention(q, k, v, kh, kw):
     if len(devs) != 1:
         raise ValueError(f"{NAME} inputs must be on one device, got {devs}")
     q, k, v = (t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{NAME} in bfloat16 needs q, k, v whose data starts on 16 bytes "
+                         "(16-byte copies); got a view at an offset")
     out = torch.empty_like(q)
     _build.kernels().creff_attention(out, q, k, v, int(kh), int(kw))
     _build.LAUNCHES[NAME] += 1

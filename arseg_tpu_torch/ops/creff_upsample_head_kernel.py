@@ -9,9 +9,14 @@ Replaces ``arseg_tpu/ops/pallas_creff.py`` ``creff_phase2_upsample_argmax``
     pred = argmax_k(bilinear_x8(final_conv(MyAttention(lr_up, ref))))
 
 with align_corners=False, int32 maps [N, 8h, 8w], lowest index on ties.
-Neither the fused feature nor a logit plane reaches device memory. Bound at
-[11,90,120,256] bf16: bytes, about 0.045 ms (the source note in the ``.cu``
-file has the count and the design).
+Neither the fused feature nor a logit plane reaches device memory. Unlike
+K3, the 1x1 conv takes the fused feature unrounded, in float32, as the TPU
+kernel does; only the logits are rounded. bfloat16 runs the tensor-core
+module body ``csrc/creff_module_mma.cuh`` on overlapping 16 x 16 tiles and
+the conv and upsample in float32 on the CUDA cores; float32, which only the
+parity checks use, runs the CUDA-core body. Bound at [11,90,120,256] bf16:
+bytes, about 0.045 ms (the source note in the ``.cu`` file has the count
+and the design).
 
 ``creff_phase2_upsample_argmax`` takes the plain version for a CPU tensor
 and launches the kernel for a CUDA tensor, raising on what the kernel does

@@ -16,10 +16,11 @@ Phases, in order; any failure exits non-zero:
      (no path runs it there); kernel, plain and library times (CUDA events,
      median of 20 kernel runs, of 5 plain runs at the 720x960 shapes). Then
      K2 on the flow cases of tests/test_pallas_warp*.py at C=64 and C=256.
-     Then K1 and K3 in bfloat16 (the tensor-core body) at edge shapes
-     (sizes no multiple of the tile, a single row, n = 1, C of 16, 64 and
-     512, windows 3, 5 and 7, 12 and 19 classes), with a tie of two
-     classes and with every logit below zero, printed with its seconds.
+     Then K1, K3, K4 and K5 in bfloat16 (the tensor-core kernels) at edge
+     shapes (sizes no multiple of the tile or of K5's 14-pixel interior, a
+     single row or column, n = 1, C of 16, 64 and 512, windows 3, 5 and 7,
+     12 and 19 classes), and K3 and K5 with a tie of two classes and with
+     every logit below zero, printed with its seconds.
   4. camvid-bise18 AR 0.5x, GOP 12, 720x960, bf16, full width, random
      seeded weights: scan_step over 3 GOPs of uint8 frames, with the launch
      counts of every kernel read around that run; then one GOP on the CPU
@@ -397,57 +398,91 @@ def warp_edge_phase():
           f"largest max|d| {worst:.3e}", flush=True)
 
 
-# (n, h, w, c, window): sizes that are no multiple of the 8 x 32 tile, a
+# (n, h, w, c, window): sizes that are no multiple of the 16 x 16 tile, a
 # single row, n = 1, C of 16, 64 and 512, and each window
 MODULE_EDGE_SHAPES = [
     (1, 13, 37, 16, 3), (2, 13, 37, 64, 5), (1, 1, 5, 64, 7), (1, 1, 5, 16, 5),
     (1, 45, 60, 512, 7), (3, 45, 60, 16, 7), (2, 13, 37, 512, 3),
 ]
+# K4 and K5 besides: sizes that are no multiple of K5's 14-pixel interior
+# (one past a multiple, and one short of one), and a single column, where
+# the upsample's clamp folds i1 onto i0 along that axis as h = 1 does
+HEAD_EDGE_SHAPES = [(1, 15, 29, 64, 7), (2, 29, 43, 16, 5), (1, 27, 13, 32, 7), (1, 7, 1, 16, 3)]
 
 
-def module_edge_phase():
-    """K1 and K3 in bfloat16 (the tensor-core body) against their plain
-    versions, with the main rows' tolerances, at MODULE_EDGE_SHAPES (K3 with
-    12 and 19 classes); then K3 with two classes tied in every pixel (the
-    lower index must win everywhere) and with every logit below zero (the
-    zero columns that pad the classes must never win)."""
-    from arseg_tpu_torch.ops import creff_head_kernel, creff_kernel
-
-    t0 = time.perf_counter()
-    phase("K1 and K3, bf16 tensor-core body, at edge shapes")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    dt = torch.bfloat16
-    for n, h, w, c, k in MODULE_EDGE_SHAPES:
-        print(f"-- [{n},{h},{w},{c}] window {k}", flush=True)
-        lr_up = torch.randn(n, h, w, c, device="cuda", generator=gen).to(dt)
-        ref = torch.randn(n, h, w, c, device="cuda", generator=gen).to(dt)
-        taps, bias = _qkv_params(gen, c)
-        fused = creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, k, k)
-        check("creff_qkv_fused", dt, creff_kernel.creff_qkv_fused(lr_up, ref, taps, bias, k, k),
-              fused)
-        for n_classes in (12, 19):
-            fc_w, fc_b = _head_params(gen, c, n_classes, dt)
-            got = creff_head_kernel.creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b, k, k)
-            check_maps(f"creff_phase2_argmax {n_classes} classes", dt, got,
-                       fused.float() @ fc_w + fc_b, (n, h, w))
-    lr_up = torch.randn(2, 13, 37, 64, device="cuda", generator=gen).to(dt)
-    ref = torch.randn(2, 13, 37, 64, device="cuda", generator=gen).to(dt)
-    taps, bias = _qkv_params(gen, 64)
+def _tie_and_negative(name, run, logits_of, gen, dt):
+    """`run(fc_w, fc_b)` -> a class map at [2, 13, 37] C = 64; classes 2
+    and 9 tied in every pixel (the lower index must win everywhere), then
+    every logit below zero, held against `logits_of(fc_w, fc_b)`."""
     fc_w, fc_b = _head_params(gen, 64, 12, dt)
     # classes 2 and 9 lie in different n8 tiles and on different lanes
     fc_w[:, 9] = fc_w[:, 2]
     fc_b[2] = fc_b[9] = 50.0
-    got = creff_head_kernel.creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b, 7, 7)
-    print(f"creff_phase2_argmax tie of classes 2 and 9: {int((got == 2).sum())} of {got.numel()} "
-          f"pixels take class 2", flush=True)
+    got = run(fc_w, fc_b)
+    print(f"{name} tie of classes 2 and 9: {int((got == 2).sum())} of {got.numel()} pixels take "
+          f"class 2", flush=True)
     if not bool((got == 2).all()):
-        raise SystemExit("chip_smoke: creff_phase2_argmax does not take the lowest index of a tie")
+        raise SystemExit(f"chip_smoke: {name} does not take the lowest index of a tie")
     fc_b = torch.full_like(fc_b, -100.0)
-    got = creff_head_kernel.creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b, 7, 7)
+    check_maps(f"{name} logits all below 0", dt, run(fc_w, fc_b), logits_of(fc_w, fc_b),
+               tuple(got.shape))
+
+
+def module_edge_phase():
+    """K1, K3, K4 and K5 in bfloat16 (the tensor-core body and products)
+    against their plain versions, with the main rows' tolerances, at
+    MODULE_EDGE_SHAPES and HEAD_EDGE_SHAPES (K3 and K5 with 12 and 19
+    classes; K1 and K3 at the first list only); then K3 and K5 with two
+    classes tied in every pixel (the lower index must win everywhere) and
+    with every logit below zero (K3: the zero columns that pad the classes
+    must never win)."""
+    from arseg_tpu_torch.ops import creff_attention_kernel, creff_head_kernel, creff_kernel
+    from arseg_tpu_torch.ops import creff_upsample_head_kernel as k5
+
+    t0 = time.perf_counter()
+    phase("K1, K3, K4 and K5, bf16 tensor-core kernels, at edge shapes")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = torch.bfloat16
+    for n, h, w, c, k in MODULE_EDGE_SHAPES + HEAD_EDGE_SHAPES:
+        print(f"-- [{n},{h},{w},{c}] window {k}", flush=True)
+        lr_up = torch.randn(n, h, w, c, device="cuda", generator=gen).to(dt)
+        ref = torch.randn(n, h, w, c, device="cuda", generator=gen).to(dt)
+        v = torch.randn(n, h, w, c, device="cuda", generator=gen).to(dt)
+        taps, bias = _qkv_params(gen, c)
+        check("creff_attention", dt, creff_attention_kernel.creff_attention(lr_up, ref, v, k, k),
+              creff_attention_kernel.creff_attention_plain(lr_up, ref, v, k, k))
+        module = (n, h, w, c, k) in MODULE_EDGE_SHAPES
+        if module:
+            fused = creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, k, k)
+            check("creff_qkv_fused", dt,
+                  creff_kernel.creff_qkv_fused(lr_up, ref, taps, bias, k, k), fused)
+        for n_classes in (12, 19):
+            fc_w, fc_b = _head_params(gen, c, n_classes, dt)
+            if module:
+                got = creff_head_kernel.creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b,
+                                                            k, k)
+                check_maps(f"creff_phase2_argmax {n_classes} classes", dt, got,
+                           fused.float() @ fc_w + fc_b, (n, h, w))
+            args = (lr_up, ref, taps, bias, fc_w, fc_b, k, k)
+            check_maps(f"creff_phase2_upsample_argmax {n_classes} classes", dt,
+                       k5.creff_phase2_upsample_argmax(*args), k5.upsampled_logits_plain(*args),
+                       (n, 8 * h, 8 * w))
+    lr_up = torch.randn(2, 13, 37, 64, device="cuda", generator=gen).to(dt)
+    ref = torch.randn(2, 13, 37, 64, device="cuda", generator=gen).to(dt)
+    taps, bias = _qkv_params(gen, 64)
     fused = creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, 7, 7)
-    check_maps("creff_phase2_argmax logits all below 0", dt, got, fused.float() @ fc_w + fc_b,
-               (2, 13, 37))
-    print(f"-- module edge shapes: {time.perf_counter() - t0:.1f} s", flush=True)
+    _tie_and_negative(
+        "creff_phase2_argmax",
+        lambda fc_w, fc_b: creff_head_kernel.creff_phase2_argmax(lr_up, ref, taps, bias, fc_w,
+                                                                 fc_b, 7, 7),
+        lambda fc_w, fc_b: fused.float() @ fc_w + fc_b, gen, dt)
+    _tie_and_negative(
+        "creff_phase2_upsample_argmax",
+        lambda fc_w, fc_b: k5.creff_phase2_upsample_argmax(lr_up, ref, taps, bias, fc_w, fc_b, 7,
+                                                           7),
+        lambda fc_w, fc_b: k5.upsampled_logits_plain(lr_up, ref, taps, bias, fc_w, fc_b, 7, 7),
+        gen, dt)
+    print(f"-- kernel edge shapes: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def kernel_phase():

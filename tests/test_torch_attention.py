@@ -175,10 +175,10 @@ def test_k4_refuses_mismatched_shapes():
 # ---------------------------------------------------------------- K5
 
 
-def _head_case(seed, h, w, c, ncls):
+def _head_case(seed, h, w, c, ncls, n=1):
     rng = np.random.RandomState(seed)
-    lr_up = rng.randn(1, h, w, c).astype(np.float32)
-    ref = rng.randn(1, h, w, c).astype(np.float32)
+    lr_up = rng.randn(n, h, w, c).astype(np.float32)
+    ref = rng.randn(n, h, w, c).astype(np.float32)
     convs = [(rng.randn(3, 3, 1, c).astype(np.float32), rng.randn(c).astype(np.float32))
              for _ in range(3)]
     fc_w = rng.randn(1, 1, c, ncls).astype(np.float32)
@@ -211,6 +211,43 @@ def test_k5_plain_matches_pallas_interpret(case, dtype):
                                           *_k5_args(convs, fc_w, fc_b, dtype), 7, 7)
     assert got.dtype == torch.int32 and got.shape == want.shape == (1, 8 * h, 8 * w)
     assert np.mean(got.numpy() == want) >= AGREEMENT[dtype]
+
+
+def _x8_lerp(x, axis):
+    """x8 align_corners=False resize along `axis` in float32, written out:
+    src = max((o + 0.5) / 8 - 0.5, 0), (1 - w) x[i0] + w x[i1] with
+    i1 = min(i0 + 1, n - 1), and w = 0 where the clamp folds i1 onto i0."""
+    n = x.shape[axis]
+    src = ((torch.arange(8 * n, dtype=torch.float32) + 0.5) / 8 - 0.5).clamp(min=0)
+    i0 = src.floor().long().clamp(max=n - 1)
+    i1 = (i0 + 1).clamp(max=n - 1)
+    wt = torch.where(i1 == i0, torch.zeros_like(src), src - i0.float())
+    shape = [1] * x.dim()
+    shape[axis] = -1
+    wt = wt.reshape(shape)
+    return x.index_select(axis, i0) * (1 - wt) + x.index_select(axis, i1) * wt
+
+
+def test_k5_plain_rounds_logits_not_the_fused_feature():
+    """K5's plain version, the yardstick the card holds the kernel to,
+    takes the 1x1 conv on the float32 fused feature and rounds only the
+    logits (the TPU kernel's jnp.sum(fused * wc) before .astype): it equals
+    that composition written out, and differs from the one that rounds the
+    fused feature to bf16 first (K3's rounding point)."""
+    lr_up, ref, convs, fc_w, fc_b = _head_case(15, 6, 7, 64, 19)
+    dt = torch.bfloat16
+    args = (t(lr_up).to(dt), t(ref).to(dt), *_k5_args(convs, fc_w, fc_b, dt), 7, 7)
+    got = k5.upsampled_logits_plain(*args)
+    taps, bias, fcw, fcb = args[2:6]
+    fused = creff_kernel.creff_module_f32_plain(args[0], args[1], taps, bias, 7, 7)
+
+    def compose(feature):
+        logits = torch.matmul(feature, fcw).to(dt).float()
+        return _x8_lerp(_x8_lerp(logits, 2).to(dt).float(), 1) + fcb
+
+    assert fused.dtype == torch.float32 and got.shape == (1, 48, 56, 19)
+    torch.testing.assert_close(got, compose(fused), rtol=0, atol=0)
+    assert bool((got != compose(fused.to(dt).float())).any())
 
 
 def test_bisenet_fused_upsample_head_matches_planes_head(monkeypatch):
@@ -295,3 +332,60 @@ def test_k5_kernel_matches_plain_on_card(dtype):
     got = k5.creff_phase2_upsample_argmax(*args).cpu().numpy()
     want = k5.creff_phase2_upsample_argmax_plain(*args).cpu().numpy()
     assert np.mean(got == want) >= AGREEMENT[dtype]
+
+
+# bf16 edge shapes (n, h, w, c, window): sizes that are no multiple of the
+# 16 x 16 tile or of K5's 14-pixel interior, a single row or column (the
+# upsample's clamp folds i1 onto i0), C of 16 to 256, each window
+BF16_EDGE_SHAPES = [(1, 13, 37, 16, 3), (2, 15, 29, 64, 5), (1, 1, 5, 64, 7), (1, 7, 1, 16, 3),
+                    (1, 29, 43, 256, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k4_bf16_kernel_matches_plain_on_card_edge_shapes(shape):
+    needs_card()
+    n, h, w, c, win = shape
+    q, k, v = (t(a).cuda().to(torch.bfloat16) for a in _qkv(16, (n, h, w, c)))
+    got = creff_attention_kernel.creff_attention(q, k, v, win, win).float().cpu().numpy()
+    want = creff_attention_kernel.creff_attention_plain(q, k, v, win, win).float().cpu().numpy()
+    _close(got, want, BF16_REL_TOL)
+
+
+@pytest.mark.cuda
+def test_k4_bf16_kernel_refuses_misaligned_data():
+    needs_card()
+    q, k, v = (t(a).cuda().to(torch.bfloat16) for a in _qkv(17, (1, 8, 16, 16)))
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(q.shape)  # contiguous, its data 2 bytes past 16
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16 bytes"):
+        creff_attention_kernel.creff_attention(shifted, k, v, 7, 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_classes", [12, 19])
+@pytest.mark.parametrize("shape", BF16_EDGE_SHAPES[:4], ids=lambda s: "x".join(map(str, s)))
+def test_k5_bf16_kernel_matches_plain_on_card_edge_shapes(shape, n_classes):
+    needs_card()
+    n, h, w, c, win = shape
+    lr_up, ref, convs, fc_w, fc_b = _head_case(18, h, w, c, n_classes, n)
+    dt = torch.bfloat16
+    args = (t(lr_up).cuda().to(dt), t(ref).cuda().to(dt),
+            *(x.cuda() for x in _k5_args(convs, fc_w, fc_b, dt)), win, win)
+    got = k5.creff_phase2_upsample_argmax(*args).cpu().numpy()
+    want = k5.creff_phase2_upsample_argmax_plain(*args).cpu().numpy()
+    assert got.shape == want.shape == (n, 8 * h, 8 * w)
+    assert np.mean(got == want) >= AGREEMENT[dt]
+
+
+@pytest.mark.cuda
+def test_k5_bf16_kernel_takes_lowest_index_of_a_tie_on_card():
+    needs_card()
+    lr_up, ref, convs, fc_w, fc_b = _head_case(19, 13, 37, 64, 12)
+    fc_w[..., 9] = fc_w[..., 2]
+    fc_b[2] = fc_b[9] = 50.0
+    dt = torch.bfloat16
+    args = (t(lr_up).cuda().to(dt), t(ref).cuda().to(dt),
+            *(x.cuda() for x in _k5_args(convs, fc_w, fc_b, dt)), 7, 7)
+    assert bool((k5.creff_phase2_upsample_argmax(*args) == 2).all())

@@ -35,10 +35,12 @@ import chip_smoke as cs
 
 WALL_REPEATS = 5
 # K1, K3 and K5 are the kernel template module_kernel with the epilogues
-# StoreFusedMma (K1) and ArgmaxHeadMma (K3) in bf16 (creff_module_mma.cuh),
-# StoreFused, ArgmaxHead and UpsampleArgmaxHead (K5) on creff_module.cuh;
-# K4 is attention_kernel, K2 warp_bilinear_kernel
-PORT_KERNELS = ("module_kernel", "attention_kernel", "warp_bilinear_kernel")
+# StoreFusedMma (K1), ArgmaxHeadMma (K3) and UpsampleArgmaxHeadMma (K5) in
+# bf16 (creff_module_mma.cuh), StoreFused, ArgmaxHead and UpsampleArgmaxHead
+# in float32 (creff_module.cuh); K4 is attention_mma_kernel in bf16 and
+# attention_kernel in float32, K2 warp_bilinear_kernel
+PORT_KERNELS = ("module_kernel", "attention_mma_kernel", "attention_kernel",
+                "warp_bilinear_kernel")
 
 
 def main():
