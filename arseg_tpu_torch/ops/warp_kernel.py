@@ -91,6 +91,9 @@ def warp_bilinear(src, fx, fy, align_corners=False):
         raise TypeError(f"{NAME} takes float32 or bfloat16, got {src.dtype}")
     if src.shape[-1] % 8:
         raise ValueError(f"{NAME} needs C % 8 == 0, got C={src.shape[-1]}")
+    if (h + 1) * (w + 1) * src.shape[-1] > 2**31 - 1:
+        raise ValueError(f"{NAME} indexes one frame's image in int32: [{h},{w},{src.shape[-1]}] "
+                         f"is too large")
     if not (src.device == fx.device == fy.device):
         raise ValueError("src and flows must be on one device")
     src = src.contiguous()

@@ -14,8 +14,15 @@ Phases, in order; any failure exits non-zero:
      at camvid-psp18 V1's, K4 at the localNoGroup and local5 shapes, K5 at
      camvid-bise18's fused head, and K1 at V1's C=64 shape for information
      (no path runs it there); kernel, plain and library times (CUDA events,
-     median of 20 kernel runs, of 5 plain runs at the 720x960 shapes). Then
-     K2 on the flow cases of tests/test_pallas_warp*.py at C=64 and C=256.
+     median of 20 kernel runs, of 5 plain runs at the 720x960 shapes, each
+     run over back-to-back calls filling about 1 ms); K2 must equal its
+     plain version exactly, and is timed on block-constant 4x8 flows as
+     well, for information. Then K2 on the flow cases of
+     tests/test_pallas_warp*.py and at the edges of its tiling (sizes off
+     its 32-pixel sets and 32- to 128-pixel blocks, a single row or column,
+     n = 1, 11 frames from one source, one source per frame, flows of
+     +-60) at C of 8, 64, 136, 256 and 512 (one, two or four warps a set),
+     and a source past half the L2 in both block orders, exactly.
      Then K1, K3, K4 and K5 in bfloat16 (the tensor-core kernels) at edge
      shapes (sizes no multiple of the tile or of K5's 14-pixel interior, a
      single row or column, n = 1, C of 16, 64 and 512, windows 3, 5 and 7,
@@ -69,6 +76,9 @@ TOL = {
     "warp_bilinear": {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7},
     "creff_attention": {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -6},
 }
+# kernels that repeat their plain version's arithmetic step by step: besides
+# the tolerance, max |kernel - plain| must be 0
+EXACT = ("warp_bilinear",)
 # K3 and K5 write class maps: the share of pixels equal to the plain
 # version's, and where they differ the plain version's logits (for K5 the
 # upsampled ones) of its class and of the kernel's must be a near tie,
@@ -83,28 +93,37 @@ K3_TIE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 AGREEMENT = 0.999
 FUSED_TOL = 1e-3  # relative to max(1, max |fused|)
 TIMED_RUNS = 20
+BATCH_MS = 1.0  # a timing spans back-to-back calls of about this length
 PLAIN_RUNS_PSP = 5
 WARP_BLOCK = (4, 8)  # one motion vector per 4x8 block (the HEVC motion-field shape)
+WARP_EDGE_C = (8, 64, 136, 256, 512)
 
 
 def phase(name):
     print(f"== {name}", flush=True)
 
 
+def _events_ms(fn, calls):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def median_ms(fn, runs=TIMED_RUNS, warmup=3):
+    """Median of `runs` timings of one call of fn, in ms, on CUDA events. Each
+    timing spans as many back-to-back calls as fill about BATCH_MS, so that
+    the host's time to reach the first launch does not count much for a
+    short kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    calls = max(1, min(100, int(BATCH_MS / _events_ms(fn, 1))))
+    return float(np.median([_events_ms(fn, calls) for _ in range(runs)]))
 
 
 def device_phase():
@@ -135,8 +154,9 @@ def check(name, dtype, got, want):
     err = (got.float() - want.float()).abs().max().item()
     scale = max(1.0, want.float().abs().max().item())
     tol = TOL[name][dtype] * scale
-    ok = err <= tol and bool(torch.isfinite(got.float()).all())
-    print(f"{name} {str(dtype):14s} max|d|={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}",
+    ok = err <= tol and bool(torch.isfinite(got.float()).all()) and (name not in EXACT or err == 0)
+    exact = " (exact)" if name in EXACT else ""
+    print(f"{name} {str(dtype):14s} max|d|={err:.3e} tol={tol:.3e}{exact} {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version in {dtype}")
@@ -204,8 +224,18 @@ def k2_case(gen, dt, n, hw, c, plain_runs):
                                  align_corners=False)
     gs = (lib2().permute(0, 2, 3, 1).float() - k2().float()).abs().max().item()
     print(f"warp_bilinear vs F.grid_sample {dt}: max|d|={gs:.3e} (information)", flush=True)
+    # block-constant flows (one motion vector per 4x8 block at 720x960, the
+    # HEVC motion-field shape), resized as the pipeline resizes them
+    bfx, bfy = (torch.from_numpy(f).cuda()
+                for f in _block_flow(np.random.RandomState(0), n, H, W, -16, 16))
+    bfx, bfy = _resize_flow_planes((bfx, bfy), hw)
+    kb = lambda: warp_kernel.warp_bilinear(src, bfx, bfy)
+    check("warp_bilinear", dt, kb(), warp_kernel.warp_bilinear_plain(src, bfx, bfy))
+    ms = median_ms(k2)
+    print(f"warp_bilinear {dt} ms: per-pixel random flows {ms:.4f}, block-constant 4x8 flows "
+          f"{median_ms(kb):.4f} (information)", flush=True)
     out_numel = n * hw[0] * hw[1] * c
-    return dict(max_abs_err=err, ms=median_ms(k2), plain_ms=median_ms(p2, runs=plain_runs),
+    return dict(max_abs_err=err, ms=ms, plain_ms=median_ms(p2, runs=plain_runs),
                 library_ms=median_ms(lib2),
                 bytes=src.numel() * src.element_size() + 2 * fx.numel() * 4
                 + out_numel * src.element_size(),
@@ -342,12 +372,17 @@ def _scene_flow(rng, n, h, w, mag, objects=3):
 
 
 def warp_edge_cases(c, seed=0):
-    """name -> (src [1, h, w, c], fx [n, h, w], fy) float32 numpy arrays: the
-    flow cases of tests/test_pallas_warp.py and tests/test_pallas_warp2.py.
-    Block-coherent flows with and without subpixel jitter, corners far out
-    of the image, discontinuities inside motion blocks (window overflow),
-    per-pixel random flows (past the correction budget), scene flows, small
-    reach, and reach beyond one 128-wide tile."""
+    """name -> (src [1 or n, h, w, c], fx [n, h, w], fy) float32 numpy
+    arrays: the flow cases of tests/test_pallas_warp.py and
+    tests/test_pallas_warp2.py (block-coherent flows with and without
+    subpixel jitter, corners far out of the image, discontinuities inside
+    motion blocks (window overflow), per-pixel random flows (past the
+    correction budget), scene flows, small reach, and reach beyond one
+    128-wide tile), then the edges of K2's tiling (sets of 32 pixels,
+    blocks of 32 to 128): 11 frames from one source at a size off both tiles, one source
+    per frame, a single row, a single column, and flows of +-60. All are
+    small enough for K2's frames-outermost block order (warp_edge_phase
+    adds sources too large for it)."""
     rng = np.random.RandomState(seed)
     h, w = 32, 64
 
@@ -373,29 +408,57 @@ def warp_edge_cases(c, seed=0):
                            np.full((1, 48, 200), -20.5, np.float32))
     cases["random_8"] = (src(24, 32), *(rng.uniform(-8, 8, (2, 24, 32)).astype(np.float32)
                                         for _ in range(2)))
+
+    def flow(n, hh, ww, mag):
+        return tuple(rng.uniform(-mag, mag, (n, hh, ww)).astype(np.float32) for _ in range(2))
+
+    cases["gop_11"] = (src(13, 37), *flow(11, 13, 37, 16))
+    cases["per_frame"] = (rng.randn(3, 29, 43, c).astype(np.float32), *flow(3, 29, 43, 16))
+    cases["row"] = (src(1, 45), *flow(2, 1, 45, 8))
+    cases["column"] = (src(45, 1), *flow(2, 45, 1, 8))
+    cases["reach_60"] = (src(29, 43), *flow(2, 29, 43, 60))
     return cases
 
 
-def warp_edge_phase():
+def _warp_exact(name, src, fx, fy):
+    """K2 against its plain version on one case, in f32 and bf16: max|d|
+    must be 0 (and within the tolerance). src, fx, fy are on the card."""
     from arseg_tpu_torch.ops import warp_kernel
 
-    phase("K2 on the flow cases of tests/test_pallas_warp*.py")
     worst = 0.0
-    for c in (64, 256):
+    for dt in (torch.float32, torch.bfloat16):
+        s = src.to(dt)
+        got = warp_kernel.warp_bilinear(s, fx, fy)
+        want = warp_kernel.warp_bilinear_plain(s, fx, fy)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL["warp_bilinear"][dt] * max(1.0, want.float().abs().max().item())
+        if not (err <= tol and err == 0):
+            raise SystemExit(f"chip_smoke: warp_bilinear case {name} {dt}: "
+                             f"max|d| {err:.3e}, must be 0 (and <= {tol:.3e})")
+        worst = max(worst, err)
+    return worst
+
+
+def warp_edge_phase():
+    phase("K2 on the flow cases of tests/test_pallas_warp*.py and at the edges of its tiling")
+    worst = 0.0
+    for c in WARP_EDGE_C:
         for name, (src, fx, fy) in warp_edge_cases(c).items():
-            fxc, fyc = torch.from_numpy(fx).cuda(), torch.from_numpy(fy).cuda()
-            for dt in (torch.float32, torch.bfloat16):
-                s = torch.from_numpy(src).cuda().to(dt)
-                got = warp_kernel.warp_bilinear(s, fxc, fyc)
-                want = warp_kernel.warp_bilinear_plain(s, fxc, fyc)
-                err = (got.float() - want.float()).abs().max().item()
-                tol = TOL["warp_bilinear"][dt] * max(1.0, want.float().abs().max().item())
-                if not err <= tol:
-                    raise SystemExit(f"chip_smoke: warp_bilinear case {name} C={c} {dt}: "
-                                     f"max|d| {err:.3e} > {tol:.3e}")
-                worst = max(worst, err)
-    print(f"warp_bilinear: {len(warp_edge_cases(8))} cases x C in (64, 256) x (f32, bf16) ok, "
-          f"largest max|d| {worst:.3e}", flush=True)
+            worst = max(worst, _warp_exact(f"{name} C={c}", *(torch.from_numpy(a).cuda()
+                                                              for a in (src, fx, fy))))
+    print(f"warp_bilinear: {len(warp_edge_cases(8))} cases x C in {WARP_EDGE_C} x (f32, bf16) "
+          f"ok, largest max|d| {worst:.3e} (exact)", flush=True)
+    # a source larger than half the L2 at a size off the 128-pixel tile: one
+    # source for 3 frames takes the frames-innermost block order, one source
+    # per frame the frames-outermost one
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, w, c = 3, 723, 965, 64
+    fx, fy = ((torch.rand((n, h, w), generator=gen, device="cuda") - 0.5) * 32 for _ in range(2))
+    for ns in (1, n):
+        src = torch.randn((ns, h, w, c), generator=gen, device="cuda")
+        worst = max(worst, _warp_exact(f"[{ns},{h},{w},{c}] -> {n}", src, fx, fy))
+    print(f"warp_bilinear: [1 and {n},{h},{w},{c}] -> {n} (f32, bf16) ok, largest max|d| "
+          f"{worst:.3e} (exact)", flush=True)
 
 
 # (n, h, w, c, window): sizes that are no multiple of the 16 x 16 tile, a

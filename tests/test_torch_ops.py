@@ -94,7 +94,7 @@ def _warp_case(seed, n, h, w, c, lo, hi, ns=None):
     return feat, fx, fy
 
 
-@pytest.mark.parametrize("lo,hi", [(-3.0, 3.0), (-40.0, 40.0), (-0.5, 0.5)])
+@pytest.mark.parametrize("lo,hi", [(-3.0, 3.0), (-40.0, 40.0), (-0.5, 0.5), (-60.0, 60.0)])
 @pytest.mark.parametrize("align_corners", [False, True])
 def test_warp_feature_matches_jax(lo, hi, align_corners):
     feat, fx, fy = _warp_case(4, 2, 12, 17, 8, lo, hi)
@@ -137,22 +137,27 @@ def test_warp_feature_matches_pallas_blocked_interpret(jitter, lo, hi):
 
 
 @pytest.mark.parametrize("name", ["coherent", "coherent_jitter", "out_of_image", "discontinuity",
-                                  "over_budget", "scene", "small_reach", "cross_tile", "random_8"])
+                                  "over_budget", "scene", "small_reach", "cross_tile", "random_8",
+                                  "gop_11", "per_frame", "row", "column", "reach_60"])
 def test_warp_plain_matches_jax_on_warp_kernel_cases(name):
     """K2's plain version against the JAX warp on the flow cases of
-    tests/test_pallas_warp*.py (chip_smoke.py holds the kernel to the plain
-    version on the same cases on the card): motion discontinuities inside
-    blocks, per-pixel random flows past the TPU kernel's correction budget,
-    scene flows and reach beyond one tile, beside the cases above."""
+    tests/test_pallas_warp*.py and at the edges of K2's tiling, at C = 16
+    and 512 (chip_smoke.py holds the kernel to the plain version on the same
+    cases on the card): motion discontinuities inside blocks, per-pixel
+    random flows past the TPU kernel's correction budget, scene flows, reach
+    beyond one tile, 11 frames from one source at a size off the kernel's
+    tiles, one source per frame, a single row or column, and flows of
+    +-60."""
     from chip_smoke import warp_edge_cases
 
-    cases = warp_edge_cases(16)
-    assert name in cases
-    feat, fx, fy = cases[name]
-    rep = np.repeat(feat, fx.shape[0], axis=0)
-    want = np.asarray(jwarp.warp_feature(jnp.asarray(rep), (jnp.asarray(fx), jnp.asarray(fy))))
-    got = warp_kernel.warp_bilinear_plain(t(feat), t(fx), t(fy)).numpy()
-    np.testing.assert_allclose(got, want, **WARP_TOL)
+    for c in (16, 512):
+        cases = warp_edge_cases(c)
+        assert name in cases
+        feat, fx, fy = cases[name]
+        rep = feat if feat.shape[0] == fx.shape[0] else np.repeat(feat, fx.shape[0], axis=0)
+        want = np.asarray(jwarp.warp_feature(jnp.asarray(rep), (jnp.asarray(fx), jnp.asarray(fy))))
+        got = warp_kernel.warp_bilinear_plain(t(feat), t(fx), t(fy)).numpy()
+        np.testing.assert_allclose(got, want, **WARP_TOL)
 
 
 # ---------------------------------------------------------------- CReFF
@@ -262,16 +267,24 @@ def test_cpu_tensors_take_plain_versions_without_launch():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-def test_warp_kernel_matches_plain_on_card(dtype, tol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_kernel_matches_plain_on_card(dtype):
+    """The kernel repeats its plain version's arithmetic, so the two are
+    equal: at sizes off its 32-pixel sets and 32- to 128-pixel blocks, 11
+    frames from one source, one source per frame, a single row or column,
+    C of 8 to 512 (one, two or four warps a set), flows of +-60, and a
+    source too large for half the L2 (the frames-innermost block order)."""
     needs_card()
-    for lo, hi in ((-3, 3), (-60, 60)):
-        feat, fx, fy = _warp_case(13, 3, 18, 24, 32, lo, hi, ns=1)
+    # (n, sources, h, w, c, flow range)
+    for n, ns, h, w, c, mag in ((3, 1, 18, 24, 32, 3), (3, 1, 18, 24, 32, 60),
+                                (11, 1, 13, 37, 512, 16), (3, 3, 29, 43, 64, 16),
+                                (2, 1, 1, 45, 8, 8), (2, 1, 45, 1, 256, 8), (1, 1, 29, 43, 64, 60),
+                                (2, 1, 13, 37, 136, 16), (3, 1, 723, 965, 64, 16)):
+        feat, fx, fy = _warp_case(13, n, h, w, c, -mag, mag, ns=ns)
         src = t(feat).cuda().to(dtype)
         fxc, fyc = t(fx).cuda(), t(fy).cuda()
-        got = warp_kernel.warp_bilinear(src, fxc, fyc).float()
-        want = warp_kernel.warp_bilinear_plain(src, fxc, fyc).float()
-        assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+        got = warp_kernel.warp_bilinear(src, fxc, fyc)
+        assert torch.equal(got, warp_kernel.warp_bilinear_plain(src, fxc, fyc)), (n, ns, h, w, c)
 
 
 @pytest.mark.cuda
