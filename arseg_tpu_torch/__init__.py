@@ -10,6 +10,11 @@ the module + 1x1 conv + x8 bilinear + argmax head of BiSeNet; K1, K3 and
 K5 on ``creff_module.cuh``), ``creff_attention.cu`` (K4, windowed attention
 of the other local fusion variants) and ``warp_bilinear.cu`` (K2, MV warp).
 
+Serving: ``gop.ARPipeline`` (a GOP a step, B GOPs a step, or a frame a
+call) for camvid-bise18, camvid-psp18, cityscapes-bise18 and
+cityscapes-psp18 (``models.build_model``); accuracy: ``eval.EvalConstRes``
+and ``eval.EvalAlterRes``.
+
 Layout: models are ``nn.Module``s in NCHW (channels_last in memory) with the
 reference checkpoint's state-dict key names; the public ops
 (``ops.warp_feature``, ``ops.creff_local_module_resize``) take NHWC tensors.

@@ -52,10 +52,11 @@ int arseg_creff_phase2_upsample_argmax(int32_t* out, const void* lr_up,
                                        int c, int n_classes, int kh, int kw,
                                        int dtype, void* stream);
 
-// out[b] = bilinear zero-padding sample of src[ns == 1 ? 0 : b] at
-// (x + fx, y + fy), grid_sample semantics. src: [ns, h, w, c];
-// fx, fy: [n, h, w] float32; out: [n, h, w, c]. c % 8 == 0 and
-// (h + 1) * (w + 1) * c < 2^31 (offsets inside one frame are int32).
+// out[b] = bilinear zero-padding sample of src[b / (n / ns)] at
+// (x + fx, y + fy), grid_sample semantics. src: [ns, h, w, c] with n a
+// multiple of ns and ns <= 65535; fx, fy: [n, h, w] float32; out:
+// [n, h, w, c]. c % 8 == 0 and (h + 1) * (w + 1) * c < 2^31 (offsets inside
+// one frame are int32).
 int arseg_warp_bilinear(void* out, const void* src, const float* fx,
                         const float* fy, int n, int ns, int h, int w, int c,
                         int align_corners, int dtype, void* stream);

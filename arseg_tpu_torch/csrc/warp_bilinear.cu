@@ -51,6 +51,17 @@
 //   corner outside the image has weight 0 and is not read; it adds +0.0f,
 //   which leaves the sum as it is (the sum starts at +0.0f and so is never
 //   -0.0f).
+// - S sources for n frames, n a multiple of S: frame b reads source
+//   b / (n / S), in place. One source (S = 1) is the GOP: one keyframe
+//   feature warped to each frame. S = B is the multi-GOP step: B keyframe
+//   features, each warped to the G-1 frames of its GOP, with no repeated
+//   copy of a source. S = n gives each frame its own source (the eval
+//   engine). The grid's y index is the source and x walks its n / S
+//   frames, so no thread divides to find its source (a per-thread division
+//   took 8 more registers, and 5-7% at [720,960,64] bf16, on the H100).
+//   The launcher refuses an n that S does not divide, and S > 65535. The
+//   block order above looks at S = 1 alone: with more sources, frames of
+//   one source sit next to each other in either order.
 // Not done: staging a source window in shared memory (flows are unbounded,
 // so every pixel would still need a device-memory path), and fusing the warp
 // into the CReFF kernels' K/V staging.
@@ -137,8 +148,8 @@ __device__ __forceinline__ float source_coord(int i, float f, int n, int align_c
 template <typename T, int kGroup>
 __global__ void __launch_bounds__(32 * kWarps)
     warp_bilinear_kernel(T* __restrict__ out, const T* __restrict__ src,
-                         const float* __restrict__ fx, const float* __restrict__ fy, int n,
-                         int ns, int h, int w, int c, int align_corners, int frames_inner) {
+                         const float* __restrict__ fx, const float* __restrict__ fy, int k,
+                         int h, int w, int c, int align_corners, int frames_inner) {
   // per pixel of a set: the corner weights (tl, tr, bl, br), and the
   // element offset of the top-left corner in the frame's image with a bit
   // per corner that lies in the image
@@ -150,8 +161,9 @@ __global__ void __launch_bounds__(32 * kWarps)
   const int hw = h * w;
   constexpr int pixels = kSet * kWarps / kGroup;  // per block
   const int tiles = (hw + pixels - 1) / pixels;
-  const int b = frames_inner ? blockIdx.x % n : blockIdx.x / tiles;
-  const int tile = frames_inner ? blockIdx.x / n : blockIdx.x % tiles;
+  // blockIdx.y is the source; its k frames are consecutive
+  const int b = blockIdx.y * k + (frames_inner ? blockIdx.x % k : blockIdx.x / tiles);
+  const int tile = frames_inner ? blockIdx.x / k : blockIdx.x % tiles;
   const int set = warp / kGroup;
   const int p0 = tile * pixels + set * kSet;  // the set's first pixel
   const int64_t frame = static_cast<int64_t>(b) * hw;
@@ -194,7 +206,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   else
     __syncthreads();
 
-  const T* img = src + (ns == 1 ? 0 : frame * c);
+  const T* img = src + static_cast<int64_t>(blockIdx.y) * hw * c;
   T* dst = out + frame * c;
   const int wc = w * c;
   // the walk: item i = t + stride * step is chunk v = i % cv of pixel j = i / cv
@@ -249,20 +261,21 @@ int launch(void* out, const void* src, const float* fx, const float* fy, int n, 
   const int cv = c / 8;
   const int group = cv >= 32 ? kWarps : cv >= 16 ? 2 : 1;
   const int pixels = kSet * kWarps / group;
-  void (*kernel)(T*, const T*, const float*, const float*, int, int, int, int, int, int, int) =
+  void (*kernel)(T*, const T*, const float*, const float*, int, int, int, int, int, int) =
       group == kWarps ? warp_bilinear_kernel<T, kWarps>
                       : group == 2 ? warp_bilinear_kernel<T, 2> : warp_bilinear_kernel<T, 1>;
-  const int64_t blocks = (static_cast<int64_t>(h) * w + pixels - 1) / pixels * n;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // blocks of one source (its n / ns frames) along x, sources along y
+  const int64_t blocks = (static_cast<int64_t>(h) * w + pixels - 1) / pixels * (n / ns);
+  if (blocks > INT_MAX || ns > 65535) return static_cast<int>(cudaErrorInvalidValue);
   int device = 0, l2_bytes = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&l2_bytes, cudaDevAttrL2CacheSize, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t src_bytes = static_cast<int64_t>(h) * w * c * sizeof(T);
   const int frames_inner = ns == 1 && n > 1 && src_bytes > l2_bytes / 2;
-  kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, 0, stream>>>(
-      static_cast<T*>(out), static_cast<const T*>(src), fx, fy, n, ns, h, w, c, align_corners,
-      frames_inner);
+  kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(ns)), 32 * kWarps, 0,
+           stream>>>(static_cast<T*>(out), static_cast<const T*>(src), fx, fy, n / ns, h, w, c,
+                     align_corners, frames_inner);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -272,7 +285,7 @@ extern "C" int arseg_warp_bilinear(void* out, const void* src, const float* fx,
                                    const float* fy, int n, int ns, int h, int w, int c,
                                    int align_corners, int dtype, void* stream) {
   // offsets inside one frame's image, a row and a column past it, are int32
-  if (c % 8 != 0 || c <= 0 || (ns != 1 && ns != n) || n < 0 || h <= 0 || w <= 0 ||
+  if (c % 8 != 0 || c <= 0 || ns <= 0 || n < 0 || n % ns != 0 || h <= 0 || w <= 0 ||
       static_cast<int64_t>(h + 1) * (w + 1) * c > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

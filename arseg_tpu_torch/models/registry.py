@@ -2,8 +2,8 @@
 
 ``build_model(backend, fuse)`` returns an ``nn.Module`` with weights drawn
 from a seeded ``torch.Generator``, on ``device`` ("cuda" unless the caller
-asks for the CPU), in eval mode. The BiSeNet backends and camvid-psp18 are
-ported; cityscapes-psp18 waits (ROADMAP Queue A, PSPNet family).
+asks for the CPU), in eval mode. cityscapes-psp18 is built with the
+fusion in both registries (``fuse`` is ignored), as the reference does.
 """
 
 import torch
@@ -11,9 +11,9 @@ import torch
 from arseg_tpu_torch._device import resolve_device
 from arseg_tpu_torch.nn.bisenet import BiSeNetV1
 from arseg_tpu_torch.nn.pspnet import PSPNet
+from arseg_tpu_torch.nn.pspnet_semseg import PSPNetSemseg
 
 BISENET_CLASSES = {"camvid-bise18": 12, "cityscapes-bise18": 19}
-NOT_PORTED = ("cityscapes-psp18",)
 
 
 def _camvid_psp18(fuse, gen, **kw):
@@ -24,6 +24,19 @@ def _camvid_psp18(fuse, gen, **kw):
         deep_features_size=256,
         backend="resnet18",
         fuse_version=(kw.get("fuse_version", 1) if fuse else 0),
+        attention_type=kw.get("attention_type", "local"),
+        atten_k=kw.get("atten_k", 7),
+        generator=gen,
+    )
+
+
+def _cityscapes_psp18(fuse, gen, **kw):
+    return PSPNetSemseg(
+        layers=18,
+        bins=(1, 2, 3, 6),
+        classes=19,
+        feat_dim=512,
+        with_fuse=True,
         attention_type=kw.get("attention_type", "local"),
         atten_k=kw.get("atten_k", 7),
         generator=gen,
@@ -45,17 +58,14 @@ def _bisenet(backend):
     return build
 
 
-MODELS = {"camvid-psp18": _camvid_psp18, **{b: _bisenet(b) for b in BISENET_CLASSES}}
+MODELS = {"camvid-psp18": _camvid_psp18, "cityscapes-psp18": _cityscapes_psp18,
+          **{b: _bisenet(b) for b in BISENET_CLASSES}}
 
 
 def build_model(backend: str, fuse: bool = False, *, seed: int = 0, device=None, **kw):
     backend = backend.lower()
-    if backend in NOT_PORTED:
-        raise NotImplementedError(
-            f"{backend} is not ported yet (ROADMAP Queue A, PSPNet family)"
-        )
     if backend not in MODELS:
-        raise KeyError(f"unknown backend {backend}; options: {sorted(MODELS) + list(NOT_PORTED)}")
+        raise KeyError(f"unknown backend {backend}; options: {sorted(MODELS)}")
     model = MODELS[backend](fuse, torch.Generator().manual_seed(seed), **kw)
     return model.to(resolve_device(device)).eval()
 

@@ -7,6 +7,8 @@
   (1, 2, 1, 1), dilations (1, 1, 2, 4); block 0 of each layer keeps
   dilation 1 in both convs, later blocks use (d, d); the forward returns
   (x4, x3). ``stem`` and ``layer{1..4}`` give per-layer access.
+* "semseg" (the cityscapes PSPNet backbone): as "arseg", but block 0 of a
+  dilated layer dilates its conv2 as well, (1, d).
 
 Module names follow the torch checkpoint: conv1, bn1, layer{1..4}.{i}.{conv1,
 bn1, conv2, bn2, downsample.{0,1}}."""
@@ -19,9 +21,10 @@ from arseg_tpu_torch.nn.functional import batch_norm
 
 RESNET_BASIC_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 VARIANTS = {
-    # variant: (strides, dilations)
-    "bisenet": ((1, 2, 2, 2), (1, 1, 1, 1)),
-    "arseg": ((1, 2, 1, 1), (1, 1, 2, 4)),
+    # variant: (strides, dilations, whether block 0 dilates its conv2)
+    "bisenet": ((1, 2, 2, 2), (1, 1, 1, 1), False),
+    "arseg": ((1, 2, 1, 1), (1, 1, 2, 4), False),
+    "semseg": ((1, 2, 1, 1), (1, 1, 2, 4), True),
 }
 
 
@@ -51,16 +54,13 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in RESNET_BASIC_LAYERS:
             raise NotImplementedError(
-                f"resnet{depth}: only the basic-block ResNet-18/34 is ported (ROADMAP "
-                "Queue A, PSPNet family)"
+                f"resnet{depth}: only the basic-block ResNet-18/34 is ported (no headline "
+                "config uses another)"
             )
         if variant not in VARIANTS:
-            raise NotImplementedError(
-                f"resnet variant {variant!r} is not ported (ROADMAP Queue A, PSPNet family); "
-                f"options: {sorted(VARIANTS)}"
-            )
+            raise ValueError(f"unknown resnet variant {variant!r}; options: {sorted(VARIANTS)}")
         self.variant = variant
-        strides, dilations = VARIANTS[variant]
+        strides, dilations, dilate_first = VARIANTS[variant]
         self.conv1 = nn.Conv2d(input_channel, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = batch_norm(64)
         cin = 64
@@ -69,15 +69,16 @@ class ResNet(nn.Module):
             planes = 64 * 2**li
             blocks = []
             for bi in range(count):
-                d = 1 if bi == 0 else dil
-                blocks.append(BasicBlock(cin, planes, stride if bi == 0 else 1, d, d))
+                dil1 = 1 if bi == 0 else dil
+                dil2 = dil if bi or dilate_first else 1
+                blocks.append(BasicBlock(cin, planes, stride if bi == 0 else 1, dil1, dil2))
                 cin = planes
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
 
     def init_weights(self, gen):
-        """"bisenet": torch Conv2d default init for every conv; "arseg":
-        N(0, sqrt(2/n)) (msra). Default BN."""
-        conv_init = Init.conv_msra_ if self.variant == "arseg" else Init.conv_kaiming_uniform_
+        """"bisenet": torch Conv2d default init for every conv; "arseg" and
+        "semseg": N(0, sqrt(2/n)) (msra). Default BN."""
+        conv_init = Init.conv_kaiming_uniform_ if self.variant == "bisenet" else Init.conv_msra_
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 conv_init(m, gen)

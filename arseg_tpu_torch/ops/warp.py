@@ -28,11 +28,12 @@ def _planes(flow):
 
 
 def warp_feature(feature, flow, align_corners: bool = False, prepadded: bool = False):
-    """Warp ``feature`` [1 or N, H, W, C] by pixel displacements.
+    """Warp ``feature`` [S, H, W, C] by pixel displacements.
 
-    flow: a tuple (fx, fy) of [N, H, W] planes, or an [N, H, W, 2] array.
-    A single-image feature is sampled for every flow plane (the GOP warps
-    one keyframe feature to each frame). prepadded=True: ``feature`` is
+    flow: a tuple (fx, fy) of [N, H, W] planes, or an [N, H, W, 2] array,
+    N a multiple of S: flow plane i samples feature i // (N // S) (the GOP
+    warps one keyframe feature to each frame, the multi-GOP step B keyframe
+    features to their GOPs' frames). prepadded=True: ``feature`` is
     ``pad_for_warp(source)`` and flow is at the unpadded geometry."""
     if prepadded:
         feature = feature[:, 1:-1, 1:-1]

@@ -7,6 +7,13 @@ Replaces ``arseg_tpu/ops/pallas_warp.py`` (``_blocked_pass``) and
 ``arseg_tpu/ops/warp.py``'s ``warp_feature``. The source note in the ``.cu``
 file says what bounds the kernel and how it is laid out.
 
+Sources: ``src`` holds S images for n frames, n a multiple of S, and frame
+i reads source ``i // (n // S)``. S = 1 is the GOP (one keyframe feature
+warped to every frame), S = B the multi-GOP step (B keyframe features, each
+warped to the G-1 frames of its GOP; the kernel reads each source in place,
+where the JAX package repeats it G-1 times), S = n one source per frame
+(the eval engine). The wrapper refuses an n that S does not divide.
+
 ``warp_bilinear`` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, raising on what the kernel does not take.
 """
@@ -32,8 +39,9 @@ def _source_coord(i, f, n, align_corners):
 
 
 def warp_bilinear_plain(src, fx, fy, align_corners=False):
-    """Plain version: src [1 or N, H, W, C]; fx, fy [N, H, W] float32 pixel
-    displacements -> [N, H, W, C] in src's dtype. Repeats
+    """Plain version: src [S, H, W, C]; fx, fy [N, H, W] float32 pixel
+    displacements, N a multiple of S -> [N, H, W, C] in src's dtype; frame i
+    samples source i // (N // S). Repeats
     ``arseg_tpu/ops/warp.py`` ``_grid_sample_planes`` step by step: floor,
     per-corner validity weights, a [2, 2, C] gather from the 1-px zero-padded
     source, float32 products summed in corner order, one rounding."""
@@ -58,7 +66,9 @@ def warp_bilinear_plain(src, fx, fy, align_corners=False):
     # the JAX gather is: a clipped index only lands on corners of weight 0
     xi = (x0.clamp(-1, w - 1) + 1).long()
     yi = (y0.clamp(-1, h - 1) + 1).long()
-    fp = F.pad(src, (0, 0, 1, 1, 1, 1)).expand(n, -1, -1, -1)
+    fp = F.pad(src, (0, 0, 1, 1, 1, 1))
+    ns = src.shape[0]
+    fp = fp.expand(n, -1, -1, -1) if ns == 1 else fp.repeat_interleave(n // ns, dim=0)
     flat = fp.reshape(n, (h + 2) * (w + 2), c)
     xi1 = xi + 1
     yi1 = yi + 1
@@ -77,14 +87,16 @@ def warp_bilinear_plain(src, fx, fy, align_corners=False):
 
 
 def warp_bilinear(src, fx, fy, align_corners=False):
-    """src [1 or N, H, W, C] (float32 or bfloat16); fx, fy [N, H, W]
-    float32 -> [N, H, W, C]. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    """src [S, H, W, C] (float32 or bfloat16); fx, fy [N, H, W] float32, N
+    a multiple of S -> [N, H, W, C]; frame i samples source i // (N // S).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    n, h, w = fx.shape
+    if (src.dim() != 4 or tuple(src.shape[1:3]) != (h, w) or src.shape[0] < 1
+            or n % src.shape[0]):
+        raise ValueError(f"src {tuple(src.shape)} does not match flow planes {tuple(fx.shape)}: "
+                         f"one source per {n} // S frames, S dividing {n}")
     if src.device.type == "cpu":
         return warp_bilinear_plain(src, fx, fy, align_corners)
-    n, h, w = fx.shape
-    if src.dim() != 4 or tuple(src.shape[1:3]) != (h, w) or src.shape[0] not in (1, n):
-        raise ValueError(f"src {tuple(src.shape)} does not match flow planes {tuple(fx.shape)}")
     if fy.shape != fx.shape or fx.dtype != torch.float32 or fy.dtype != torch.float32:
         raise ValueError("fx, fy must be float32 planes of one shape")
     if src.dtype not in (torch.float32, torch.bfloat16):

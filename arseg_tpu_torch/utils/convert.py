@@ -12,7 +12,9 @@ import numpy as np
 import torch
 
 # reference modules registered under two attribute paths (bisenet.py
-# feat_conv_out / final_conv): tree path -> every state-dict name
+# feat_conv_out / final_conv, pspnet_semseg.py final_conv = cls[4]), and the
+# semseg backbone, whose tree path differs from its state-dict name: tree
+# path -> every state-dict name
 SHARED_NAMES = {
     "camvid-bise18": {
         "conv_out.conv": ("feat_conv_out", "conv_out.conv"),
@@ -22,6 +24,12 @@ SHARED_NAMES = {
 SHARED_NAMES["cityscapes-bise18"] = SHARED_NAMES["camvid-bise18"]
 # PSPNet registers every module once; PReLU slopes stay [1]
 SHARED_NAMES["camvid-psp18"] = {}
+SHARED_NAMES["cityscapes-psp18"] = {
+    "backbone.conv1": ("layer0.0",),
+    "backbone.bn1": ("layer0.1",),
+    **{f"backbone.layer{i}": (f"layer{i}",) for i in range(1, 5)},
+    "cls.4": ("final_conv", "cls.4"),
+}
 
 
 def _leaf(name, arr):

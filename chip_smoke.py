@@ -12,7 +12,12 @@ Phases, in order; any failure exits non-zero:
      each driven path gives it, in float32 and bfloat16, with the tolerance
      stated: K1 and K2 at camvid-bise18's and camvid-psp18 V2's, K2 and K3
      at camvid-psp18 V1's, K4 at the localNoGroup and local5 shapes, K5 at
-     camvid-bise18's fused head, and K1 at V1's C=64 shape for information
+     camvid-bise18's fused head, K1 and K2 at cityscapes-bise18's and
+     cityscapes-psp18's (1024x2048 frames, fused at 128x256), K1 and K2 at
+     the multi-GOP step's (8 GOPs: K1 over 88 frames, K2 from 8 sources to
+     88 frames), streaming's (one frame) and EvalAlterRes's (a batch of 2
+     frames, K2 with one source per frame), and K1 at V1's C=64 shape for
+     information
      (no path runs it there); kernel, plain and library times (CUDA events,
      median of 20 kernel runs, of 5 plain runs at the 720x960 shapes, each
      run over back-to-back calls filling about 1 ms); K2 must equal its
@@ -22,7 +27,9 @@ Phases, in order; any failure exits non-zero:
      its 32-pixel sets and 32- to 128-pixel blocks, a single row or column,
      n = 1, 11 frames from one source, one source per frame, flows of
      +-60) at C of 8, 64, 136, 256 and 512 (one, two or four warps a set),
-     and a source past half the L2 in both block orders, exactly.
+     and a source past half the L2 in both block orders, exactly; K2 with
+     S sources (3 for 33 frames at C 8, 64 and 136, and S = n) exactly,
+     and the wrapper and the C launcher refusing 3 sources for 32 frames.
      Then K1, K3, K4 and K5 in bfloat16 (the tensor-core kernels) at edge
      shapes (sizes no multiple of the tile or of K5's 14-pixel interior, a
      single row or column, n = 1, C of 16, 64 and 512, windows 3, 5 and 7,
@@ -45,7 +52,24 @@ Phases, in order; any failure exits non-zero:
      head (K5, the USE_FUSED_UPSAMPLE_HEAD setting that is not the default)
      by scan_step over 3 GOPs with its launch counts, and one GOP on the
      CPU against the card in float32.
-  7. a JSON line of the kernels, and the last line {"ok": true, ...}.
+  7. cityscapes-bise18 and cityscapes-psp18 AR 0.5x, GOP 12, 1024x2048,
+     bf16: scan_step over 3 GOPs with its launch counts (K1 and K2 once per
+     GOP; bise18 the planes head, psp18 forward_phase2 -> resize ->
+     argmax), then a short GOP (keyframe + 2 frames) at 512x1024 on the CPU
+     in float32 against the card in float32.
+  8. multi-GOP: camvid-bise18, 8 GOPs in one gop_step call (720x960), its
+     launch counts (K1 and K2 once), its maps against scan_step over the
+     same GOPs in bf16 and in float32, and the ms per frame of both.
+  9. streaming: camvid-bise18, one GOP as key_step + 11 frame_step calls
+     against gop_step (float32), and the median ms per frame_step in bf16
+     with its launch counts.
+ 10. eval: EvalConstRes (0.5x) and EvalAlterRes for camvid-bise18 at
+     720x960, 4 batches of 2 frames, bf16: each histogram counts every
+     scored pixel exactly; EvalAlterRes's launch counts; then both engines
+     at 256x320 in float32 on the card against the CPU: class maps agree
+     >= 0.999, mIoU within 1e-3, no histogram cell apart by more than 0.1%
+     of the scored pixels.
+ 11. a JSON line of the kernels, and the last line {"ok": true, ...}.
 Every phase prints its seconds.
 """
 
@@ -66,6 +90,24 @@ C_PSP_V2 = 512  # camvid-psp18 V2 fusion channels (the backbone feature), at FEA
 N_CLASSES = 12
 CAMVID_MEAN = (0.39068785, 0.40521392, 0.41434407)
 CAMVID_STD = (0.29652068, 0.30514979, 0.30080369)
+# cityscapes-bise18 and -psp18: 1024x2048 frames, both fuse at 1/8; the
+# short GOP against the CPU runs at half that size
+CITY_HW, CITY_SHORT_HW, N_CLASSES_CITY = (1024, 2048), (512, 1024), 19
+CITY_FEAT_HW = (CITY_HW[0] // 8, CITY_HW[1] // 8)
+C_CITY_PSP = 512  # cityscapes-psp18 fusion channels (the cls feature), at CITY_FEAT_HW
+# the reference's Cityscapes normalisation of each model family
+CITY_NORM = {"cityscapes-bise18": ((0.3257, 0.3690, 0.3223), (0.2112, 0.2148, 0.2115)),
+             "cityscapes-psp18": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))}
+MULTI_GOPS = 8  # the multi-GOP batch of bench.py's throughput row
+# multi-GOP maps against scan_step over the same GOPs: cuDNN picks other
+# algorithms at another batch, so sums run in another order
+MULTI_AGREEMENT = {torch.bfloat16: 0.999, torch.float32: 0.9999}
+STREAM_AGREEMENT = 0.9999  # streaming against gop_step, float32
+STREAM_REPEATS = 3  # GOPs served a frame a call for the frame_step timing
+EVAL_BATCHES, EVAL_BATCH, EVAL_SMALL_HW, IGNORE = 4, 2, (256, 320), 255
+# eval on the card (float32) against the CPU: the class maps' agreement
+# (AGREEMENT), mIoU, and each histogram cell as a share of the scored pixels
+MIOU_TOL, HIST_CELL_TOL = 1e-3, 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no tensor cores for f32
 # max |kernel - plain| allowed, relative to max(1, max |plain|): float32 sums
@@ -197,16 +239,17 @@ def k1_case(gen, dt, n, hw, c, plain_runs):
                 flops=lr_up.numel() * 251)
 
 
-def k2_case(gen, dt, n, hw, c, plain_runs):
-    """K2: one keyframe feature [1, *hw, c] warped to n frames (the dims
-    printed are the output's, [n, *hw, c]); flows drawn
-    uniform(-16, 16) at 720x960 and resized to hw."""
+def k2_case(gen, dt, n, hw, c, plain_runs, flow_hw=(H, W), sources=1):
+    """K2: `sources` keyframe features [S, *hw, c] warped to n frames, frame
+    i reading source i // (n / S) (the dims printed are the output's,
+    [n, *hw, c]); flows drawn uniform(-16, 16) at flow_hw and resized to
+    hw."""
     from arseg_tpu_torch.gop.pipeline import _resize_flow_planes
     from arseg_tpu_torch.ops import warp_kernel
 
-    src = torch.randn(1, *hw, c, device="cuda", generator=gen).to(dt)
-    fxf = torch.rand(n, H, W, device="cuda", generator=gen) * 32 - 16
-    fyf = torch.rand(n, H, W, device="cuda", generator=gen) * 32 - 16
+    src = torch.randn(sources, *hw, c, device="cuda", generator=gen).to(dt)
+    fxf = torch.rand(n, *flow_hw, device="cuda", generator=gen) * 32 - 16
+    fyf = torch.rand(n, *flow_hw, device="cuda", generator=gen) * 32 - 16
     fx, fy = _resize_flow_planes((fxf, fyf), hw)
     k2 = lambda: warp_kernel.warp_bilinear(src, fx, fy)
     p2 = lambda: warp_kernel.warp_bilinear_plain(src, fx, fy)
@@ -214,12 +257,16 @@ def k2_case(gen, dt, n, hw, c, plain_runs):
     far = check("warp_bilinear", dt, warp_kernel.warp_bilinear(src, fx * 40, fy * 40),
                 warp_kernel.warp_bilinear_plain(src, fx * 40, fy * 40))
     print(f"warp_bilinear far out-of-image flows (x40) checked, max|d|={far:.3e}", flush=True)
-    # library yardstick: F.grid_sample on the same sampling grid (NCHW)
+    # library yardstick: F.grid_sample on the same sampling grid (NCHW), the
+    # sources repeated into one image per frame before the timing
+    # (grid_sample takes no source index; on the H100 it ran 3-3.6x faster
+    # on such a copy than on a stride-0 view of one source, in
+    # tools_torch_k2_ab.py)
     xs = torch.arange(hw[1], device="cuda", dtype=torch.float32)
     ys = torch.arange(hw[0], device="cuda", dtype=torch.float32)[:, None]
     grid = torch.stack([2.0 * (xs + fx) / (hw[1] - 1) - 1.0,
                         2.0 * (ys + fy) / (hw[0] - 1) - 1.0], dim=-1).to(dt)
-    src_nchw = src.permute(0, 3, 1, 2).expand(n, -1, -1, -1)
+    src_nchw = src.permute(0, 3, 1, 2).repeat_interleave(n // sources, dim=0)
     lib2 = lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
                                  align_corners=False)
     gs = (lib2().permute(0, 2, 3, 1).float() - k2().float()).abs().max().item()
@@ -227,7 +274,7 @@ def k2_case(gen, dt, n, hw, c, plain_runs):
     # block-constant flows (one motion vector per 4x8 block at 720x960, the
     # HEVC motion-field shape), resized as the pipeline resizes them
     bfx, bfy = (torch.from_numpy(f).cuda()
-                for f in _block_flow(np.random.RandomState(0), n, H, W, -16, 16))
+                for f in _block_flow(np.random.RandomState(0), n, *flow_hw, -16, 16))
     bfx, bfy = _resize_flow_planes((bfx, bfy), hw)
     kb = lambda: warp_kernel.warp_bilinear(src, bfx, bfy)
     check("warp_bilinear", dt, kb(), warp_kernel.warp_bilinear_plain(src, bfx, bfy))
@@ -459,6 +506,41 @@ def warp_edge_phase():
         worst = max(worst, _warp_exact(f"[{ns},{h},{w},{c}] -> {n}", src, fx, fy))
     print(f"warp_bilinear: [1 and {n},{h},{w},{c}] -> {n} (f32, bf16) ok, largest max|d| "
           f"{worst:.3e} (exact)", flush=True)
+    warp_sources_phase()
+
+
+def warp_sources_phase():
+    """K2 with S sources for n frames (frame i reads source i // (n / S)):
+    3 sources for 33 frames at C 8, 64 and 136, and S = n, exactly; then
+    the wrapper and the C launcher refuse an n that S does not divide."""
+    from arseg_tpu_torch.ops import _build, warp_kernel
+
+    rng = np.random.RandomState(2)
+    worst = 0.0
+    for c in (8, 64, 136):
+        for s, n, h, w in ((3, 33, 13, 37), (4, 4, 29, 43)):
+            src = torch.from_numpy(rng.randn(s, h, w, c).astype(np.float32)).cuda()
+            fx, fy = (torch.from_numpy(rng.uniform(-16, 16, (n, h, w)).astype(np.float32)).cuda()
+                      for _ in range(2))
+            worst = max(worst, _warp_exact(f"{s} sources -> {n} C={c}", src, fx, fy))
+    print(f"warp_bilinear: 3 sources -> 33 frames and S = n = 4, C in (8, 64, 136) (f32, bf16) "
+          f"ok, largest max|d| {worst:.3e} (exact)", flush=True)
+    src = torch.zeros(3, 13, 37, 8, device="cuda")
+    fx = torch.zeros(32, 13, 37, device="cuda")
+    out = torch.empty(32, 13, 37, 8, device="cuda")
+    try:
+        warp_kernel.warp_bilinear(src, fx, fx)
+    except ValueError:
+        pass
+    else:
+        raise SystemExit("chip_smoke: warp_bilinear took 3 sources for 32 frames")
+    rc = _build.kernels().lib.arseg_warp_bilinear(
+        out.data_ptr(), src.data_ptr(), fx.data_ptr(), fx.data_ptr(), 32, 3, 13, 37, 8, 0, 0,
+        torch.cuda.current_stream().cuda_stream)
+    if rc == 0:
+        raise SystemExit("chip_smoke: the K2 launcher took 3 sources for 32 frames")
+    print(f"warp_bilinear: 3 sources for 32 frames refused by the wrapper (ValueError) and by "
+          f"the launcher (CUDA error {rc})", flush=True)
 
 
 # (n, h, w, c, window): sizes that are no multiple of the 16 x 16 tile, a
@@ -567,6 +649,25 @@ def kernel_phase():
         ("creff_attention", "bise18 local5 sub-grid", k4_case,
          (n, (FEAT_HW[0] // 2, FEAT_HW[1] // 2), C, TIMED_RUNS)),
         ("creff_phase2_upsample_argmax", "bise18 fused head", k5_case, (n, FEAT_HW, C, N_CLASSES)),
+        ("creff_qkv_fused", "cityscapes-bise18", k1_case, (n, CITY_FEAT_HW, C, PLAIN_RUNS_PSP)),
+        ("warp_bilinear", "cityscapes-bise18", k2_case,
+         (n, CITY_FEAT_HW, C, PLAIN_RUNS_PSP, CITY_HW)),
+        ("creff_qkv_fused", "cityscapes-psp18", k1_case,
+         (n, CITY_FEAT_HW, C_CITY_PSP, PLAIN_RUNS_PSP)),
+        ("warp_bilinear", "cityscapes-psp18", k2_case,
+         (n, CITY_FEAT_HW, C_CITY_PSP, PLAIN_RUNS_PSP, CITY_HW)),
+        # B GOPs in one step: K1 over all B*(G-1) frames, K2 from B sources
+        ("creff_qkv_fused", "bise18 multi-GOP", k1_case,
+         (MULTI_GOPS * n, FEAT_HW, C, PLAIN_RUNS_PSP)),
+        ("warp_bilinear", "bise18 multi-GOP", k2_case,
+         (MULTI_GOPS * n, FEAT_HW, C, PLAIN_RUNS_PSP, (H, W), MULTI_GOPS)),
+        # streaming: a frame a frame_step; EvalAlterRes: a batch of frames,
+        # each warped from its own keyframe's feature
+        ("creff_qkv_fused", "bise18 streaming", k1_case, (1, FEAT_HW, C, TIMED_RUNS)),
+        ("warp_bilinear", "bise18 streaming", k2_case, (1, FEAT_HW, C, TIMED_RUNS)),
+        ("creff_qkv_fused", "EvalAlterRes", k1_case, (EVAL_BATCH, FEAT_HW, C, TIMED_RUNS)),
+        ("warp_bilinear", "EvalAlterRes", k2_case,
+         (EVAL_BATCH, FEAT_HW, C, TIMED_RUNS, (H, W), EVAL_BATCH)),
         # information: no driven path runs K1 at V1's shape (V1 runs K3 there)
         ("creff_qkv_fused", "psp18 V1 (information)", k1_case, big),
     ]
@@ -589,14 +690,14 @@ def kernel_phase():
 
 def make_models(backend="camvid-bise18", fuse_version=1, attention_type="local"):
     """HR and LR models at full width on the CPU, weights from seeded
-    generators, BN statistics randomised. camvid-bise18: HR plain, LR fused
+    generators, BN statistics randomised. The BiSeNets: HR plain, LR fused
     with `attention_type`; camvid-psp18 V1: HR plain (V0), LR V1; V2: both
-    V2."""
+    V2; cityscapes-psp18: both with the fusion, as the registry builds it."""
     from arseg_tpu_torch.models import build_model
     from arseg_tpu_torch.nn.init import randomize_bn_
 
-    kw = (dict(attention_type=attention_type) if backend == "camvid-bise18"
-          else dict(fuse_version=fuse_version))
+    kw = (dict(fuse_version=fuse_version) if backend == "camvid-psp18"
+          else dict(attention_type=attention_type))
     hr_fuse = backend == "camvid-psp18" and fuse_version == 2
     models = []
     for seed, fuse in ((0, hr_fuse), (1, True)):
@@ -606,18 +707,25 @@ def make_models(backend="camvid-bise18", fuse_version=1, attention_type="local")
     return models
 
 
-def make_clip(gops, frames=GOP - 1):
-    """uint8 keyframes [K,H,W,3] and frames [K,frames,H,W,3], and flow planes
-    [K,frames,H,W] drawn uniform(-16, 16) as bench.py draws them."""
+def make_clip(gops, frames=GOP - 1, hw=(H, W)):
+    """uint8 keyframes [K,h,w,3] and frames [K,frames,h,w,3], and flow planes
+    [K,frames,h,w] drawn uniform(-16, 16) as bench.py draws them."""
     rng = np.random.RandomState(0)
-    kfs = torch.from_numpy(rng.randint(0, 256, (gops, H, W, 3), dtype=np.uint8))
-    frs = torch.from_numpy(rng.randint(0, 256, (gops, frames, H, W, 3), dtype=np.uint8))
-    fxs = torch.from_numpy(rng.uniform(-16, 16, (gops, frames, H, W)).astype(np.float32))
-    fys = torch.from_numpy(rng.uniform(-16, 16, (gops, frames, H, W)).astype(np.float32))
+    kfs = torch.from_numpy(rng.randint(0, 256, (gops, *hw, 3), dtype=np.uint8))
+    frs = torch.from_numpy(rng.randint(0, 256, (gops, frames, *hw, 3), dtype=np.uint8))
+    fxs = torch.from_numpy(rng.uniform(-16, 16, (gops, frames, *hw)).astype(np.float32))
+    fys = torch.from_numpy(rng.uniform(-16, 16, (gops, frames, *hw)).astype(np.float32))
     return kfs, frs, fxs, fys
 
 
-def run_clip(pipe, clip, name):
+def check_maps_range(preds, shape, n_classes, name):
+    if tuple(preds.shape) != tuple(shape) or preds.dtype != torch.int32:
+        raise SystemExit(f"chip_smoke: {name}: bad output {tuple(preds.shape)} {preds.dtype}")
+    if int(preds.min()) < 0 or int(preds.max()) >= n_classes:
+        raise SystemExit(f"chip_smoke: {name}: class index out of range")
+
+
+def run_clip(pipe, clip, name, n_classes=N_CLASSES):
     """Warm-up GOP, then scan_step over the clip with every launch count set
     to 0 just before and read just after. Returns (maps, launches)."""
     from arseg_tpu_torch.ops import _build
@@ -634,10 +742,7 @@ def run_clip(pipe, clip, name):
     gops = dev[0].shape[0]
     print(f"{name} scan_step: {gops} GOPs in {dt * 1e3:.2f} ms: {dt * 1e3 / gops:.2f} ms/GOP, "
           f"{gops * GOP / dt:.1f} frames/s; launches {launches}", flush=True)
-    if tuple(preds.shape) != (gops, GOP, H, W) or preds.dtype != torch.int32:
-        raise SystemExit(f"chip_smoke: bad output {tuple(preds.shape)} {preds.dtype}")
-    if int(preds.min()) < 0 or int(preds.max()) >= N_CLASSES:
-        raise SystemExit("chip_smoke: class index out of range")
+    check_maps_range(preds, (gops, GOP, *dev[0].shape[1:3]), n_classes, name)
     return preds, launches
 
 
@@ -675,14 +780,15 @@ def head_launches(fused_head):
             "creff_phase2_upsample_argmax": CLIP_GOPS if fused_head else 0}
 
 
-def card_vs_cpu(models, clip, preds_b16, name):
+def card_vs_cpu(models, clip, preds_b16, name, norm=(CAMVID_MEAN, CAMVID_STD)):
     """One GOP on the card in float32 against the CPU (plain versions) in
-    float32: class-map agreement, and the fused features within FUSED_TOL."""
+    float32: class-map agreement, and the fused features within FUSED_TOL;
+    the card's bfloat16 maps of that GOP, `preds_b16`, beside them for
+    information where given."""
     from arseg_tpu_torch.gop import ARPipeline
 
     kfs, frs, fxs, fys = clip
     args = (kfs[:1], frs[0], (fxs[0], fys[0]))
-    norm = (CAMVID_MEAN, CAMVID_STD)
     card = ARPipeline(*models, scale=SCALE, normalize=norm, device="cuda")
     cpu = ARPipeline(*models, scale=SCALE, normalize=norm, device="cpu")
     p_card, f_card = card.gop_step(*args, return_fused=True)
@@ -691,10 +797,11 @@ def card_vs_cpu(models, clip, preds_b16, name):
     agree = (p_card.cpu() == p_cpu).float().mean().item()
     dfused = (f_card.cpu() - f_cpu).abs().max().item()
     fscale = f_cpu.abs().max().item()
-    agree_b16 = (preds_b16.cpu() == p_cpu).float().mean().item()
-    print(f"{name} card f32 vs CPU f32 (one GOP, CPU {time.perf_counter() - t0:.1f} s): "
-          f"class-map agreement {agree:.6f} (>= {AGREEMENT}), fused max|d| {dfused:.3e} "
-          f"(max|fused| {fscale:.3e}); card bf16 vs CPU f32 agreement {agree_b16:.6f}",
+    b16 = ("" if preds_b16 is None else
+           f"; card bf16 vs CPU f32 agreement {(preds_b16.cpu() == p_cpu).float().mean().item():.6f}")
+    print(f"{name} card f32 vs CPU f32 (one GOP of {frs.shape[1] + 1} frames at "
+          f"{tuple(kfs.shape[1:3])}, CPU {time.perf_counter() - t0:.1f} s): class-map agreement "
+          f"{agree:.6f} (>= {AGREEMENT}), fused max|d| {dfused:.3e} (max|fused| {fscale:.3e}){b16}",
           flush=True)
     if not agree >= AGREEMENT or not dfused <= FUSED_TOL * max(1.0, fscale):
         raise SystemExit(f"chip_smoke: the card's float32 {name} GOP disagrees with the CPU")
@@ -824,6 +931,215 @@ def psp18_phase():
     return {"camvid-psp18 V1": launches, "camvid-psp18 V2": v2_launches}
 
 
+def cityscapes_phase(backend):
+    """`backend` AR 0.5x at 1024x2048 (GOP 12, bf16): scan_step over 3 GOPs
+    with its launch counts (K1 and K2 once per GOP), then a short GOP
+    (keyframe + 2 frames) at 512x1024 on the card in float32 against the
+    CPU."""
+    from arseg_tpu_torch.gop import ARPipeline
+
+    phase(f"pipeline: {backend} AR 0.5x, GOP 12, 1024x2048, bf16")
+    norm = CITY_NORM[backend]
+    models = make_models(backend)
+    pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm, device="cuda")
+    _, launches = run_clip(pipe, make_clip(CLIP_GOPS, hw=CITY_HW), backend, N_CLASSES_CITY)
+    k1_k5 = (head_launches(None) if backend == "cityscapes-bise18"
+             else {"creff_qkv_fused": CLIP_GOPS, "creff_phase2_upsample_argmax": 0})
+    expect_launches(launches, {"warp_bilinear": CLIP_GOPS, "creff_phase2_argmax": 0,
+                               "creff_attention": 0, **k1_k5}, backend)
+    del pipe
+    torch.cuda.empty_cache()
+    card_vs_cpu(models, make_clip(1, frames=2, hw=CITY_SHORT_HW), None, backend, norm)
+    torch.cuda.empty_cache()
+    return {backend: launches}
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def multi_gop_phase():
+    """camvid-bise18, B = 8 GOPs in one gop_step call (5-D frames): launch
+    counts (K1 and K2 once for the step), maps against scan_step over the
+    same GOPs in bfloat16 and in float32, and the ms per frame of both."""
+    from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.ops import _build
+
+    b = MULTI_GOPS
+    phase(f"pipeline: camvid-bise18 multi-GOP, B = {b} GOPs in one gop_step, GOP 12, 720x960")
+    norm = (CAMVID_MEAN, CAMVID_STD)
+    models = make_models()
+    kfs, frs, fxs, fys = (x.cuda() for x in make_clip(b))
+    launches = None
+    for dt in (torch.bfloat16, torch.float32):
+        pipe = ARPipeline(*models, scale=SCALE, dtype=dt, normalize=norm, device="cuda")
+        pipe.gop_step(kfs, frs, (fxs, fys))  # warm-up
+        pipe.gop_step(kfs[:1], frs[0], (fxs[0], fys[0]))
+        torch.cuda.synchronize()
+        if launches is None:
+            _build.LAUNCHES.clear()
+            multi, _ = _sync_ms(lambda: pipe.gop_step(kfs, frs, (fxs, fys)))
+            launches = dict(_build.LAUNCHES)
+            expect_launches(launches, {"creff_qkv_fused": 1, "warp_bilinear": 1,
+                                       "creff_phase2_argmax": 0, "creff_attention": 0,
+                                       "creff_phase2_upsample_argmax": 0},
+                            "camvid-bise18 multi-GOP")
+        t_multi, t_scan = [], []
+        for _ in range(3):
+            multi, ms = _sync_ms(lambda: pipe.gop_step(kfs, frs, (fxs, fys)))
+            t_multi.append(ms)
+            scan, ms = _sync_ms(lambda: pipe.scan_step(kfs, frs, fxs, fys))
+            t_scan.append(ms)
+        check_maps_range(multi, (b, GOP, H, W), N_CLASSES, "camvid-bise18 multi-GOP")
+        agree = (multi == scan).float().mean().item()
+        frames = b * GOP
+        print(f"camvid-bise18 multi-GOP {dt}: {float(np.median(t_multi)) / frames:.4f} ms/frame "
+              f"(one gop_step of {b} GOPs, median of 3; all {[round(x, 3) for x in t_multi]} ms) "
+              f"against scan_step {float(np.median(t_scan)) / frames:.4f} ms/frame (all "
+              f"{[round(x, 3) for x in t_scan]} ms); maps agree {agree:.6f} "
+              f"(>= {MULTI_AGREEMENT[dt]}); launches {launches}", flush=True)
+        if not agree >= MULTI_AGREEMENT[dt]:
+            raise SystemExit(f"chip_smoke: multi-GOP maps disagree with scan_step in {dt}")
+        del pipe, multi, scan
+        torch.cuda.empty_cache()
+    return {"camvid-bise18 multi-GOP": launches}
+
+
+def streaming_phase(smi):
+    """camvid-bise18 served a frame a call: one GOP as key_step + 11
+    frame_step calls against gop_step on the same GOP (float32), then the
+    median ms per frame_step in bfloat16 over 3 GOPs, with its launch
+    counts (K1 and K2 once per frame_step)."""
+    from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.ops import _build
+
+    phase("pipeline: camvid-bise18 streaming, key_step + 11 frame_step calls a GOP, 720x960")
+    norm = (CAMVID_MEAN, CAMVID_STD)
+    models = make_models()
+    kfs, frs, fxs, fys = (x.cuda() for x in make_clip(1))
+
+    def serve(pipe, times=None):
+        key_step, frame_step = pipe.streaming_step()
+        kmap, ref = key_step(kfs[:1])
+        maps = [kmap]
+        for i in range(GOP - 1):
+            args = (ref, frs[0, i : i + 1], (fxs[0, i : i + 1], fys[0, i : i + 1]))
+            out, ms = _sync_ms(lambda: frame_step(*args))
+            maps.append(out)
+            if times is not None:
+                times.append(ms)
+        return torch.cat(maps)
+
+    pipe = ARPipeline(*models, scale=SCALE, normalize=norm, device="cuda")
+    maps = serve(pipe)
+    gop = pipe.gop_step(kfs[:1], frs[0], (fxs[0], fys[0]))
+    check_maps_range(maps, (GOP, H, W), N_CLASSES, "camvid-bise18 streaming")
+    agree = (maps == gop).float().mean().item()
+    print(f"camvid-bise18 streaming float32: maps against gop_step agree {agree:.6f} "
+          f"(>= {STREAM_AGREEMENT})", flush=True)
+    if not agree >= STREAM_AGREEMENT:
+        raise SystemExit("chip_smoke: streaming maps disagree with gop_step")
+    del pipe
+    pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm, device="cuda")
+    serve(pipe)  # warm-up
+    times = []
+    _build.LAUNCHES.clear()
+    for _ in range(STREAM_REPEATS):
+        serve(pipe, times)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    per_frame = STREAM_REPEATS * (GOP - 1)
+    expect_launches(launches, {"creff_qkv_fused": per_frame, "warp_bilinear": per_frame,
+                               "creff_phase2_argmax": 0, "creff_attention": 0,
+                               "creff_phase2_upsample_argmax": 0}, "camvid-bise18 streaming")
+    print(f"camvid-bise18 streaming bf16: frame_step median {float(np.median(times)):.3f} ms "
+          f"(host clock around synchronised calls, {len(times)} calls, range "
+          f"{min(times):.3f}-{max(times):.3f}) on {smi}; launches {launches}", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return {"camvid-bise18 streaming": launches}
+
+
+def make_eval_batches(batches, per_batch, hw, seed=0):
+    """Seeded normalised images and keyframes, labels with about 5% of
+    pixels at the ignore label, flows uniform(-16, 16) [..., 2]."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(batches):
+        label = rng.randint(0, N_CLASSES, (per_batch, *hw))
+        label[rng.rand(per_batch, *hw) < 0.05] = IGNORE
+        out.append(dict(image=rng.randn(per_batch, *hw, 3).astype(np.float32),
+                        label=label.astype(np.int32),
+                        ref_image=rng.randn(per_batch, *hw, 3).astype(np.float32),
+                        flow=rng.uniform(-16, 16, (per_batch, *hw, 2)).astype(np.float32)))
+    return out
+
+
+def eval_phase():
+    """EvalConstRes (0.5x) and EvalAlterRes for camvid-bise18 at 720x960, 4
+    batches of 2 frames, bf16: each histogram counts every scored pixel
+    exactly, with the launch counts of the AR engine (K1 and K2 once per
+    batch, K2 with one source per frame); then both engines at 256x320, 2
+    batches, in float32 on the card against the CPU: the class maps, the
+    histograms and the mIoU."""
+    from arseg_tpu_torch.eval import (EvalAlterRes, EvalConstRes, confusion_update,
+                                      miou_from_hist)
+    from arseg_tpu_torch.ops import _build
+
+    phase("eval: EvalConstRes (0.5x) and EvalAlterRes, camvid-bise18, 720x960, 4 batches of 2, "
+          "bf16")
+    hr, lr = make_models()
+    loader = make_eval_batches(EVAL_BATCHES, EVAL_BATCH, (H, W))
+    scored = sum(int((b["label"] != IGNORE).sum()) for b in loader)
+    launches = None
+    for name, engine, models in (("EvalConstRes", EvalConstRes, (hr,)),
+                                 ("EvalAlterRes", EvalAlterRes, (hr, lr))):
+        eng = engine(scale=SCALE, dtype=torch.bfloat16, device="cuda")
+        eng.histogram(*models, loader[:1], N_CLASSES)  # warm-up
+        _build.LAUNCHES.clear()
+        hist, ms = _sync_ms(lambda: eng.histogram(*models, loader, N_CLASSES))
+        if name == "EvalAlterRes":
+            launches = dict(_build.LAUNCHES)
+            expect_launches(launches, {"creff_qkv_fused": EVAL_BATCHES,
+                                       "warp_bilinear": EVAL_BATCHES}, "EvalAlterRes")
+        total = int(hist.sum())
+        print(f"{name} bf16: {EVAL_BATCHES} batches in {ms:.1f} ms, histogram sum {total} "
+              f"(scored pixels {scored}), mIoU {float(miou_from_hist(hist.cpu())):.6f} "
+              f"(random weights)", flush=True)
+        if total != scored or hist.dtype != torch.int64:
+            raise SystemExit(f"chip_smoke: {name}'s histogram does not count every scored pixel")
+    print(f"EvalAlterRes launches {launches}", flush=True)
+
+    small = make_eval_batches(2, EVAL_BATCH, EVAL_SMALL_HW, seed=1)
+    scored = sum(int((b["label"] != IGNORE).sum()) for b in small)
+    for name, engine, models in (("EvalConstRes", EvalConstRes, (hr,)),
+                                 ("EvalAlterRes", EvalAlterRes, (hr, lr))):
+        maps, hists = [], []
+        for device in ("cuda", "cpu"):
+            pairs = list(engine(scale=SCALE, device=device).predictions(*models, small))
+            hist = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int64)
+            for label, pred in pairs:
+                hist = confusion_update(hist, label.cpu(), pred.cpu(), N_CLASSES, IGNORE)
+            maps.append(torch.cat([pred.cpu().flatten() for _, pred in pairs]))
+            hists.append(hist)
+        agree = (maps[0] == maps[1]).float().mean().item()
+        card, cpu = hists
+        dmiou = abs(float(miou_from_hist(card)) - float(miou_from_hist(cpu)))
+        dcell = int((card - cpu).abs().max())
+        print(f"{name} card f32 vs CPU f32 at {EVAL_SMALL_HW}, 2 batches: class maps agree "
+              f"{agree:.6f} (>= {AGREEMENT}), mIoU |d| {dmiou:.3e} (<= {MIOU_TOL}), largest "
+              f"histogram cell |d| {dcell} (<= {HIST_CELL_TOL} x {scored} scored pixels)",
+              flush=True)
+        if not (agree >= AGREEMENT and dmiou <= MIOU_TOL and dcell <= HIST_CELL_TOL * scored):
+            raise SystemExit(f"chip_smoke: {name} on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+    return {"EvalAlterRes camvid-bise18": launches}
+
+
 def timed(fn, name):
     t0 = time.perf_counter()
     out = fn()
@@ -841,7 +1157,12 @@ def main():
     stats = timed(kernel_phase, "kernels")
     paths = {"camvid-bise18": timed(pipeline_phase, "camvid-bise18 pipeline"),
              **timed(psp18_phase, "camvid-psp18 pipelines"),
-             **timed(variants_phase, "camvid-bise18 fusion variants and fused head")}
+             **timed(variants_phase, "camvid-bise18 fusion variants and fused head"),
+             **timed(lambda: cityscapes_phase("cityscapes-bise18"), "cityscapes-bise18 pipeline"),
+             **timed(lambda: cityscapes_phase("cityscapes-psp18"), "cityscapes-psp18 pipeline"),
+             **timed(multi_gop_phase, "camvid-bise18 multi-GOP"),
+             **timed(lambda: streaming_phase(smi), "camvid-bise18 streaming"),
+             **timed(eval_phase, "eval engines")}
     kernels = []
     # each kernel in bfloat16 at the shape of the first path that runs it;
     # its other shapes beside it

@@ -1,18 +1,23 @@
 """Where the time of one AR GOP goes on the card (PyTorch/CUDA port), in
-chip_smoke.py's pipeline configuration (720x960, GOP 12, LR 0.5x, bf16, full
-width, seeded random weights, uint8 frames):
+chip_smoke.py's pipeline configuration (GOP 12, LR 0.5x, bf16, full width,
+seeded random weights, uint8 frames; 720x960 for the camvid configs,
+1024x2048 for the cityscapes ones):
 
     python3 tools_torch_profile_gop.py                                   # camvid-bise18
     python3 tools_torch_profile_gop.py --fused_upsample_head on          # its K5 head
     python3 tools_torch_profile_gop.py --attention_type localNoGroup     # a K4 fusion
     python3 tools_torch_profile_gop.py --backend camvid-psp18 --fuse_version 1
+    python3 tools_torch_profile_gop.py --backend cityscapes-bise18       # or cityscapes-psp18
+    python3 tools_torch_profile_gop.py --multi_gop 8                     # 8 GOPs a gop_step
 
 Prints the wall time per GOP (host clock around synchronised work, no
 profiler), the device's kernel time per GOP and its idle share against that
 wall time, the kernel time and host time of each pipeline stage (the
 ``gop.*`` record_function spans of arseg_tpu_torch/gop/pipeline.py) and the
 kernels by device time, from torch.profiler over a steady window after two
-warm-up GOPs. The host clock varies from clip to clip (the host's cores are
+warm-up clips. A clip is 3 GOPs through scan_step, or with --multi_gop B, B
+GOPs in one gop_step (the multi-GOP throughput mode); times are per GOP
+either way. The host clock varies from clip to clip (the host's cores are
 shared), so the wall time is the median of several clips. The port's
 kernels are launched through their binding, outside any PyTorch op. K2,
 K3 and K5 are launched straight from their span, and their time shows on
@@ -20,7 +25,7 @@ their kernel lines only, not under the ``gop.*`` span; K1 and K4 are
 launched inside a ``torch.autograd.Function``, whose op the profiler
 credits them to, so their time shows on their kernel lines and under
 ``gop.fuse_head`` as well. Writes the chrome trace to
-chiprun_out/torch_gop_trace_<backend>[_<attention_type>][_k5head].json.
+chiprun_out/torch_gop_trace_<backend>[_<attention_type>][_k5head][_multi<B>].json.
 """
 
 import argparse
@@ -46,17 +51,20 @@ PORT_KERNELS = ("module_kernel", "attention_mma_kernel", "attention_kernel",
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--backend", default="camvid-bise18",
-                    choices=["camvid-bise18", "camvid-psp18"])
+                    choices=["camvid-bise18", "camvid-psp18", "cityscapes-bise18",
+                             "cityscapes-psp18"])
     ap.add_argument("--fuse_version", type=int, default=1, choices=[1, 2],
                     help="camvid-psp18 only: 1 fuses at full resolution (K3 head), 2 at the "
                          "backbone feature")
     ap.add_argument("--attention_type", default="local",
-                    help="camvid-bise18 only: the CReFF fusion variant (nn/attention.get_fusion)")
+                    help="the CReFF fusion variant (nn/attention.get_fusion); not camvid-psp18")
     ap.add_argument("--fused_upsample_head", choices=["on", "off"], default=None,
-                    help="camvid-bise18 only: set nn/bisenet.USE_FUSED_UPSAMPLE_HEAD (K5 head "
+                    help="the BiSeNets only: set nn/bisenet.USE_FUSED_UPSAMPLE_HEAD (K5 head "
                          "for the local fusion); default: the module's setting")
+    ap.add_argument("--multi_gop", type=int, default=0, metavar="B",
+                    help="run B GOPs in one gop_step (5-D frames) instead of scan_step")
     args = ap.parse_args()
-    gops = cs.CLIP_GOPS
+    gops = args.multi_gop or cs.CLIP_GOPS
     if not torch.cuda.is_available():
         raise SystemExit("tools_torch_profile_gop: no CUDA device")
     from arseg_tpu_torch.gop import ARPipeline
@@ -66,23 +74,30 @@ def main():
         bisenet.USE_FUSED_UPSAMPLE_HEAD = args.fused_upsample_head == "on"
     cs.device_phase()
     cs.build_phase()
-    bise = args.backend == "camvid-bise18"
+    bise = args.backend.endswith("bise18")
+    city = args.backend.startswith("cityscapes")
     tag = (f"{args.attention_type}, USE_FUSED_UPSAMPLE_HEAD={bisenet.USE_FUSED_UPSAMPLE_HEAD}"
-           if bise else f"V{args.fuse_version}")
-    print(f"{args.backend} {tag}", flush=True)
+           if bise else args.attention_type if city else f"V{args.fuse_version}")
+    hw = cs.CITY_HW if city else (cs.H, cs.W)
+    mode = f"{gops} GOPs in one gop_step" if args.multi_gop else f"scan_step over {gops} GOPs"
+    print(f"{args.backend} {tag}, {hw[0]}x{hw[1]}, {mode}", flush=True)
     models = cs.make_models(args.backend, args.fuse_version, args.attention_type)
-    pipe = ARPipeline(*models, scale=cs.SCALE,
-                      dtype=torch.bfloat16, normalize=(cs.CAMVID_MEAN, cs.CAMVID_STD),
+    norm = cs.CITY_NORM[args.backend] if city else (cs.CAMVID_MEAN, cs.CAMVID_STD)
+    pipe = ARPipeline(*models, scale=cs.SCALE, dtype=torch.bfloat16, normalize=norm,
                       device="cuda")
-    kfs, frs, fxs, fys = (x.cuda() for x in cs.make_clip(gops))
+    kfs, frs, fxs, fys = (x.cuda() for x in cs.make_clip(gops, hw=hw))
+    if args.multi_gop:
+        clip = lambda: pipe.gop_step(kfs, frs, (fxs, fys))
+    else:
+        clip = lambda: pipe.scan_step(kfs, frs, fxs, fys)
     for _ in range(2):
-        pipe.gop_step(kfs[:1], frs[0], (fxs[0], fys[0]))
+        clip()
     torch.cuda.synchronize()
 
     walls = []
     for _ in range(WALL_REPEATS):
         t0 = time.perf_counter()
-        pipe.scan_step(kfs, frs, fxs, fys)
+        clip()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / gops)
     wall = float(np.median(walls))
@@ -91,7 +106,7 @@ def main():
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.scan_step(kfs, frs, fxs, fys)
+        clip()
         torch.cuda.synchronize()
         wall_prof = (time.perf_counter() - t0) * 1e3 / gops
     events = prof.key_averages()
@@ -104,7 +119,7 @@ def main():
     for e in events:
         if e.device_type == cuda and any(k in e.key for k in PORT_KERNELS):
             print(f"  kernel {e.key[:110]}: {e.self_device_time_total / 1e3 / gops:.3f} "
-                  f"ms/GOP, {e.count // gops} launch(es)/GOP", flush=True)
+                  f"ms/GOP, {e.count} launch(es) in the clip", flush=True)
     print("stage: device kernel ms/GOP, host ms/GOP (profiled):", flush=True)
     for e in sorted((e for e in events if e.device_type == cpu and e.key.startswith("gop.")),
                     key=lambda e: -e.device_time_total):
@@ -117,6 +132,8 @@ def main():
         name += f"_{args.attention_type}"
     if bise and bisenet.USE_FUSED_UPSAMPLE_HEAD:
         name += "_k5head"
+    if args.multi_gop:
+        name += f"_multi{gops}"
     prof.export_chrome_trace(f"chiprun_out/torch_gop_trace_{name}.json")
 
 
