@@ -13,7 +13,12 @@ of the other local fusion variants) and ``warp_bilinear.cu`` (K2, MV warp).
 Serving: ``gop.ARPipeline`` (a GOP a step, B GOPs a step, or a frame a
 call) for camvid-bise18, camvid-psp18, cityscapes-bise18 and
 cityscapes-psp18 (``models.build_model``); accuracy: ``eval.EvalConstRes``
-and ``eval.EvalAlterRes``.
+and ``eval.EvalAlterRes``, and the mIoU_d protocol
+``eval.protocol.run_protocol``; training on one device: FST phase 1 and
+both phase-2 stages (``train.trainer.train_phase1`` / ``train_phase2``,
+the step in ``train.step``, bf16 with float32 master weights), over the
+host-side readers of ``data`` and the checkpoints of
+``utils.checkpoint``.
 
 Layout: models are ``nn.Module``s in NCHW (channels_last in memory) with the
 reference checkpoint's state-dict key names; the public ops

@@ -165,8 +165,17 @@ class BiSeNetV1(nn.Module):
         feat = self.conv_out.conv(feat_fuse)
         return _upsample(self.conv_out.conv_out(feat), 8), feat
 
-    def forward(self, x):
-        """aux_mode "train": (out, out16, out32, feat_fuse); "eval": (out,)."""
+    def forward(self, x, mode="normal", ref_p=None):
+        """aux_mode "train": (out, out16, out32, feat); "eval": (out,).
+        normal: feat is the feature after ``conv_out.conv``. merge (the
+        fused model; ref_p the warped keyframe feature): phase 1, then the
+        fusion with ref_p and the main head on the fused feature, which is
+        feat, as the JAX ``apply(mode="merge")``."""
+        if mode == "merge":
+            aux = self.aux_mode == "train"
+            p1 = self.forward_phase1(x, with_aux=aux)
+            out, fused = self.forward_phase2(p1[-1] if aux else p1, ref_p)
+            return (out, *p1[:2], fused) if aux else (out,)
         feat_cp8, feat_cp16, feat_fuse = self._trunk(x)
         out, feat_fuse = self._main_head(feat_fuse)
         if self.aux_mode == "train":

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.attention import get_fusion
-from arseg_tpu_torch.nn.functional import batch_norm, resize_bilinear_nchw
+from arseg_tpu_torch.nn.functional import Dropout2d, batch_norm, resize_bilinear_nchw
 from arseg_tpu_torch.nn.resnet import ResNet
 from arseg_tpu_torch.ops import creff_head_kernel, creff_kernel
 from arseg_tpu_torch.ops.resize import adaptive_avg_pool, adaptive_max_pool_11, resize_bilinear
@@ -101,11 +101,11 @@ class PSPNet(nn.Module):
         self.middle_dim = MIDDLE_DIM[fuse_version]
         self.feats = ResNet(int(backend.replace("resnet", "")), input_channel, variant="arseg")
         self.psp = PSPModule(psp_size, 1024, sizes)
-        self.drop_1 = nn.Dropout2d(p=0.3)
+        self.drop_1 = Dropout2d(0.3)
         self.up_1 = PSPUpsample(1024, 256)
         self.up_2 = PSPUpsample(256, 64)
         self.up_3 = PSPUpsample(64, 64)
-        self.drop_2 = nn.Dropout2d(p=0.15)
+        self.drop_2 = Dropout2d(0.15)
         self.final_conv = nn.Conv2d(64, n_classes, 1)
         self.classifier = nn.Sequential(
             nn.Linear(deep_features_size, 256), nn.ReLU(), nn.Linear(256, n_classes)
@@ -161,10 +161,21 @@ class PSPNet(nn.Module):
 
     # -- forward modes ------------------------------------------------------
 
-    def forward(self, x):
-        """(log-probabilities at the input size, classifier logits, mid):
-        mid is p for V0/V1, the backbone feature for V2, the stem output for
-        V3."""
+    def forward(self, x, mode="normal", ref_p=None):
+        """normal: (log-probabilities at the input size, classifier logits,
+        mid): mid is p for V0/V1, the backbone feature for V2, the stem
+        output for V3. merge (the fused variants; ref_p the warped keyframe
+        feature): phase 1, then phase 2 with ref_p; V1 and V2 return (head
+        at ref_p's size, classifier logits, fused), V3 ``forward_phase2``'s
+        triple, as the JAX ``apply(mode="merge")``."""
+        if mode == "merge":
+            if self.fuse_version in (1, 2):
+                out_cls, mid = self.forward_phase1(x)
+                out, fused = self.forward_phase2(mid, ref_p)
+                return out, out_cls, fused
+            if self.fuse_version == 3:
+                return self.forward_phase2(self.forward_phase1(x)[0], ref_p)
+            raise ValueError("merge mode requires a fuse variant")
         f, class_f, stem = self._backbone(x)
         feat = self._decoder(f)
         out = self._head(feat, x.shape[-2:])

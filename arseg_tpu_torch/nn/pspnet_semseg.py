@@ -30,7 +30,7 @@ import torch.nn as nn
 
 from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.attention import get_fusion
-from arseg_tpu_torch.nn.functional import batch_norm, resize_bilinear_nchw
+from arseg_tpu_torch.nn.functional import Dropout2d, batch_norm, resize_bilinear_nchw
 from arseg_tpu_torch.nn.pspnet import AdaptiveAvgPool
 from arseg_tpu_torch.nn.resnet import ResNet
 
@@ -53,7 +53,7 @@ class PPM(nn.Module):
 def _head(cin, mid, n_classes, dropout):
     """3x3 conv (no bias) -> BN -> relu -> Dropout2d -> 1x1 conv: keys 0, 1, 4."""
     return nn.Sequential(nn.Conv2d(cin, mid, 3, padding=1, bias=False), batch_norm(mid), nn.ReLU(),
-                         nn.Dropout2d(p=dropout), nn.Conv2d(mid, n_classes, 1))
+                         Dropout2d(dropout), nn.Conv2d(mid, n_classes, 1))
 
 
 class PSPNetSemseg(nn.Module):
@@ -109,9 +109,18 @@ class PSPNetSemseg(nn.Module):
     def _to_input(self, logits, hw):
         return resize_bilinear_nchw(logits, hw, True) if self.zoom_factor != 1 else logits
 
-    def forward(self, x):
-        """(logits at the input size, aux logits at the input size, p)."""
+    def forward(self, x, mode="normal", ref_p=None):
+        """normal: (logits at the input size, aux logits at the input size,
+        p). merge (ref_p the warped keyframe feature): (``forward_phase2``'s
+        logits at ref_p's size, not resized, aux logits at the input size,
+        the fused feature), as the JAX ``apply(mode="merge")``. The JAX
+        model without the fusion returns (logits, aux) in normal mode; this
+        one returns p beside them whatever ``with_fuse`` is."""
         hw = x.shape[-2:]
+        if mode == "merge":
+            x_tmp, feat = self.forward_phase1(x)
+            out, fused = self.forward_phase2(feat, ref_p)
+            return out, self._to_input(self.aux(x_tmp), hw), fused
         x_tmp, y = self._trunk(x)
         feat = self._cls_feature(y)
         return (self._to_input(self.cls[4](feat), hw), self._to_input(self.aux(x_tmp), hw), feat)

@@ -15,9 +15,10 @@ Phases, in order; any failure exits non-zero:
      camvid-bise18's fused head, K1 and K2 at cityscapes-bise18's and
      cityscapes-psp18's (1024x2048 frames, fused at 128x256), K1 and K2 at
      the multi-GOP step's (8 GOPs: K1 over 88 frames, K2 from 8 sources to
-     88 frames), streaming's (one frame) and EvalAlterRes's (a batch of 2
-     frames, K2 with one source per frame), and K1 at V1's C=64 shape for
-     information
+     88 frames), streaming's (one frame), EvalAlterRes's (a batch of 2
+     frames, K2 with one source per frame) and the training step's (a
+     batch of 16, K2 with one source per frame), and K1 at V1's C=64 shape
+     for information
      (no path runs it there); kernel, plain and library times (CUDA events,
      median of 20 kernel runs, of 5 plain runs at the 720x960 shapes, each
      run over back-to-back calls filling about 1 ms); K2 must equal its
@@ -69,7 +70,24 @@ Phases, in order; any failure exits non-zero:
      at 256x320 in float32 on the card against the CPU: class maps agree
      >= 0.999, mIoU within 1e-3, no histogram cell apart by more than 0.1%
      of the scored pixels.
- 11. a JSON line of the kernels, and the last line {"ok": true, ...}.
+ 11. training: camvid-bise18 FST phase 2 on the trainers' objective, the
+     camvid policy's 720x960 crop, LR 0.5x, the teacher the fused class in
+     eval mode, the student's final conv copied from it and frozen: 2
+     stage-1 then 4 stage-2 Adam steps in bf16 at batch 16 on one repeated
+     batch (K1 and K2 never in stage 1, once per stage-2 step; each loss
+     finite, the 4th stage-2 loss below the 1st; float32 master
+     parameters, optimizer state and BN statistics; the frozen conv equal
+     to the teacher's; the median ms per step of each stage after its
+     first, the peak device memory, and K1's composed backward at the
+     step's shape); one SGD step of each stage at 128x160, batch 2, in
+     float32 on the card against the CPU (the loss within 1e-4, each
+     gradient within the larger of 1e-3 and 4 x its float32 error against
+     the CPU in float64, the BN running statistics within 1e-4);
+     TrainLoop.run_epoch over 3 in-memory batches with its launch counts,
+     then EvalAlterRes validation whose histogram counts every scored
+     pixel; a checkpoint saved and loaded into a fresh model and
+     optimizer, every tensor bit-equal.
+ 12. a JSON line of the kernels, and the last line {"ok": true, ...}.
 Every phase prints its seconds.
 """
 
@@ -139,6 +157,22 @@ BATCH_MS = 1.0  # a timing spans back-to-back calls of about this length
 PLAIN_RUNS_PSP = 5
 WARP_BLOCK = (4, 8)  # one motion vector per 4x8 block (the HEVC motion-field shape)
 WARP_EDGE_C = (8, 64, 136, 256, 512)
+# training: camvid-bise18 FST phase 2
+TRAIN_BATCH, TRAIN_HW = 16, (H, W)  # the camvid policy's crop, the reference's batch
+TRAIN_STEPS = (2, 4)  # stage-1 and stage-2 steps on one repeated batch
+TRAIN_LR = 1e-3  # the trainers' start_lr
+PARITY_HW, PARITY_BATCH = (128, 160), 2
+# one step on the card (float32) against the CPU: the loss's relative
+# difference, the BN running statistics after an SGD step (relative to
+# max(1, max |stat|)), and each gradient's relative L2 difference. A
+# train-mode gradient carries a float32 rounding error of its own (BN's
+# backward subtracts the gradient's mean and its projection on the
+# normalised input, which cancels most of it): the CPU's float32 gradients
+# differ from its float64 ones by ~1e-3 relative L2 at batch 2. So a
+# gradient's bound is the larger of TRAIN_GRAD_TOL and GRAD_ERR_FACTOR x
+# that measured error of the same tensor.
+TRAIN_LOSS_TOL, TRAIN_BN_TOL, TRAIN_GRAD_TOL, GRAD_ERR_FACTOR = 1e-4, 1e-4, 1e-3, 4.0
+TRAIN_EPOCH_BATCHES, TRAIN_EPOCH_BATCH, TRAIN_VAL_BATCHES = 3, 4, 2
 
 
 def phase(name):
@@ -668,6 +702,11 @@ def kernel_phase():
         ("creff_qkv_fused", "EvalAlterRes", k1_case, (EVAL_BATCH, FEAT_HW, C, TIMED_RUNS)),
         ("warp_bilinear", "EvalAlterRes", k2_case,
          (EVAL_BATCH, FEAT_HW, C, TIMED_RUNS, (H, W), EVAL_BATCH)),
+        # the training step's stage 2: the student's fusion over the batch,
+        # K2 warping each frame's own keyframe feature
+        ("creff_qkv_fused", "training stage 2", k1_case, (TRAIN_BATCH, FEAT_HW, C, PLAIN_RUNS_PSP)),
+        ("warp_bilinear", "training stage 2", k2_case,
+         (TRAIN_BATCH, FEAT_HW, C, PLAIN_RUNS_PSP, (H, W), TRAIN_BATCH)),
         # information: no driven path runs K1 at V1's shape (V1 runs K3 there)
         ("creff_qkv_fused", "psp18 V1 (information)", k1_case, big),
     ]
@@ -1140,6 +1179,294 @@ def eval_phase():
     return {"EvalAlterRes camvid-bise18": launches}
 
 
+def train_models():
+    """camvid-bise18's teacher (the fused class in eval mode, BN statistics
+    randomised) and student (fused, its final conv copied from the
+    teacher's), on the CPU, weights from seeded generators."""
+    from arseg_tpu_torch.nn.init import randomize_bn_
+    from arseg_tpu_torch.train.trainer import (FINAL_CONV_PATH, build_train_model,
+                                               graft_final_conv)
+
+    teacher = build_train_model("bisenet", "camvid", "resnet18", N_CLASSES, fuse=True, seed=0)
+    randomize_bn_(teacher, torch.Generator().manual_seed(100))
+    student = build_train_model("bisenet", "camvid", "resnet18", N_CLASSES, fuse=True, seed=1)
+    graft_final_conv(student, teacher, FINAL_CONV_PATH[("bisenet", "camvid")])
+    return teacher, student
+
+
+def train_batch(n, hw, seed):
+    """A batch as the CamVid readers give it: seeded uint8 frames and
+    keyframes normalised with the CamVid mean and std, labels with about 5%
+    of pixels at the ignore label, the class-presence vector, and flows
+    uniform(-16, 16) at the frames' size."""
+    rng = np.random.RandomState(seed)
+    mean, std = np.float32(CAMVID_MEAN), np.float32(CAMVID_STD)
+
+    def frames():
+        return ((rng.randint(0, 256, (n, *hw, 3), dtype=np.uint8) / np.float32(255.0) - mean)
+                / std).astype(np.float32)
+
+    label = rng.randint(0, N_CLASSES, (n, *hw)).astype(np.int32)
+    label[rng.rand(n, *hw) < 0.05] = IGNORE
+    existence = np.stack([np.isin(np.arange(N_CLASSES), lb).astype(np.float32) for lb in label])
+    return dict(image=frames(), label=label, existence=existence, ref_image=frames(),
+                flow=rng.uniform(-16, 16, (n, *hw, 2)).astype(np.float32))
+
+
+def _optimizer(student, kind):
+    """Adam or SGD on the cosine schedule over the student's trainable
+    parameters, FST's final conv frozen."""
+    from arseg_tpu_torch.train.optim import cosine_schedule, make_optimizer
+    from arseg_tpu_torch.train.step import trainable_parameters
+    from arseg_tpu_torch.train.trainer import FINAL_CONV_PATH
+
+    params = trainable_parameters(student, (FINAL_CONV_PATH[("bisenet", "camvid")],))
+    return make_optimizer(kind, cosine_schedule(TRAIN_LR, 1000), params)
+
+
+def _step(opt, stage2, compute_dtype, device, hw):
+    """The trainers' camvid-bise18 phase-2 step of one stage on `device`."""
+    from arseg_tpu_torch.train.objectives import build_phase2_loss
+    from arseg_tpu_torch.train.step import make_train_step
+
+    loss_fn = build_phase2_loss("bisenet", "camvid", (hw[1], hw[0]), SCALE, stage2=stage2)
+    return make_train_step(loss_fn, opt, compute_dtype=compute_dtype, device=device)
+
+
+def _float_state(opt):
+    return [v for st in opt.optimizer.state.values() for v in st.values()
+            if torch.is_tensor(v) and v.is_floating_point()]
+
+
+def train_steps_phase(smi):
+    """bf16 steps at full width: 2 stage-1 then 4 stage-2 Adam steps of
+    camvid-bise18 at 720x960, batch 16, on one repeated batch, with the
+    launch counts of each stage, the median ms per step, the peak device
+    memory, and the float32 master state and frozen final conv checked;
+    then the time of K1's composed backward at the step's shape."""
+    import copy
+
+    from arseg_tpu_torch.ops import _build
+    from arseg_tpu_torch.ops.local_attention import creff_local_module
+    from arseg_tpu_torch.train.step import teacher_copy
+
+    phase(f"training: camvid-bise18 phase 2, {TRAIN_STEPS[0]} stage-1 then {TRAIN_STEPS[1]} "
+          f"stage-2 Adam steps, bf16, batch {TRAIN_BATCH}, {TRAIN_HW[0]}x{TRAIN_HW[1]}")
+    teacher_cpu, student_cpu = train_models()
+    student = copy.deepcopy(student_cpu).to("cuda", memory_format=torch.channels_last)
+    teacher = teacher_copy(teacher_cpu, "cuda", torch.bfloat16)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in train_batch(TRAIN_BATCH, TRAIN_HW, seed=2).items()}
+    losses, ms, launches = {}, {}, {}
+    opt = _optimizer(student, "adam")  # one optimizer through both stages, as the trainer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for stage, steps in ((1, TRAIN_STEPS[0]), (2, TRAIN_STEPS[1])):
+        step = _step(opt, stage == 2, torch.bfloat16, "cuda", TRAIN_HW)
+        _build.LAUNCHES.clear()
+        losses[stage], ms[stage] = [], []
+        for _ in range(steps):
+            metrics, t = _sync_ms(lambda: step(student, teacher, batch))
+            losses[stage].append(float(metrics["loss"]))
+            ms[stage].append(t)
+        launches[stage] = dict(_build.LAUNCHES)
+        print(f"stage {stage}: losses {losses[stage]}, ms per step {ms[stage]}, launches "
+              f"{launches[stage]}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_launches(launches[1], {"creff_qkv_fused": 0, "warp_bilinear": 0}, "training stage 1")
+    expect_launches(launches[2], {"creff_qkv_fused": TRAIN_STEPS[1],
+                                  "warp_bilinear": TRAIN_STEPS[1]}, "training stage 2")
+    if not all(np.isfinite(losses[1] + losses[2])):
+        raise SystemExit("chip_smoke: a training loss is not finite")
+    if not losses[2][-1] < losses[2][0]:
+        raise SystemExit(f"chip_smoke: the stage-2 loss did not fall over {TRAIN_STEPS[1]} steps")
+    masters = [p for p in student.parameters()] + [b for b in student.buffers()
+                                                   if b.is_floating_point()]
+    if any(t.dtype != torch.float32 for t in masters + _float_state(opt)):
+        raise SystemExit("chip_smoke: training master state is not float32")
+    fc = student.final_conv
+    if not (torch.equal(fc.weight.cpu(), teacher_cpu.final_conv.weight)
+            and torch.equal(fc.bias.cpu(), teacher_cpu.final_conv.bias)):
+        raise SystemExit("chip_smoke: the frozen final conv moved")
+
+    # K1's composed backward at the stage-2 step's shape (the student's
+    # fusion at [16, 90, 120, 256], bf16): forward + backward less forward
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fa = student.fuse_attention
+    wb = [t.detach().to(torch.bfloat16).requires_grad_(True) for conv in
+          (fa.lr_query_conv, fa.hr_key_conv, fa.hr_value_conv) for t in (conv.weight, conv.bias)]
+    shape = (TRAIN_BATCH, *FEAT_HW, C)
+    lr_up, ref = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                  .requires_grad_(True) for _ in range(2))
+    g = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+    fwd = median_ms(lambda: creff_local_module(lr_up, ref, *wb, 7, 7), runs=5)
+    both = median_ms(lambda: torch.autograd.backward(creff_local_module(lr_up, ref, *wb, 7, 7), g),
+                     runs=5)
+    # a stage's first step pays one-time costs (cuDNN set-up, the first
+    # use of each kernel); the median is of the steps after it
+    step_ms = {stage: float(np.median(ms[stage][1:])) for stage in ms}
+    print(f"training bf16 batch {TRAIN_BATCH} {TRAIN_HW}: median ms per step after the first, "
+          f"stage 1 {step_ms[1]:.3f}, stage 2 {step_ms[2]:.3f}; peak device memory {peak:.3f} GiB; K1 "
+          f"at {list(shape)}: forward {fwd:.3f} ms, composed backward {both - fwd:.3f} ms "
+          f"({(both - fwd) / step_ms[2]:.3f} of a stage-2 step); losses fall "
+          f"{losses[2][0]:.5f} -> {losses[2][-1]:.5f}; on {smi}", flush=True)
+    del student, teacher, batch
+    torch.cuda.empty_cache()
+    return {"camvid-bise18 training stage 1": launches[1],
+            "camvid-bise18 training stage 2": launches[2]}
+
+
+def _one_step(teacher_cpu, student_cpu, batch, stage2, device, dtype):
+    """One SGD step of copies of the models on `device` in `dtype` (float32
+    or float64): (loss, gradients, BN running statistics), on the CPU."""
+    import copy
+
+    from arseg_tpu_torch.train.step import teacher_copy
+
+    student = copy.deepcopy(student_cpu).to(device, dtype)
+    if device == "cuda":
+        student = student.to(memory_format=torch.channels_last)
+    teacher = teacher_copy(teacher_cpu, device, dtype)
+    step = _step(_optimizer(student, "sgd"), stage2, None, device, PARITY_HW)
+    b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    for k in ("image", "ref_image"):
+        b[k] = b[k].to(dtype)
+    loss = float(step(student, teacher, b)["loss"])
+    grads = {n: p.grad.double().cpu() for n, p in student.named_parameters()
+             if p.grad is not None}
+    stats = {n: t.double().cpu() for n, t in student.named_buffers() if "running" in n}
+    return loss, grads, stats
+
+
+def _rel(a, b):
+    return float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)), 1e-30))
+
+
+def train_parity_phase():
+    """One SGD step of each stage at 128x160, batch 2, float32 on the card
+    against the CPU from the same weights and batch (and the CPU in float64
+    for the float32 gradients' own error): the loss, every gradient, the
+    BN running statistics after the step."""
+    phase(f"training: the card (float32) against the CPU, one SGD step of each stage at "
+          f"{PARITY_HW[0]}x{PARITY_HW[1]}, batch {PARITY_BATCH}")
+    teacher_cpu, student_cpu = train_models()
+    batch = train_batch(PARITY_BATCH, PARITY_HW, seed=4)
+    for stage2 in (False, True):
+        card = _one_step(teacher_cpu, student_cpu, batch, stage2, "cuda", torch.float32)
+        cpu = _one_step(teacher_cpu, student_cpu, batch, stage2, "cpu", torch.float32)
+        f64 = _one_step(teacher_cpu, student_cpu, batch, stage2, "cpu", torch.float64)
+        dloss = abs(card[0] - cpu[0]) / abs(cpu[0])
+        worst_grad, worst_over = (0.0, ""), []
+        for n, g in cpu[1].items():
+            d, err = _rel(card[1][n], g), _rel(g, f64[1][n])
+            tol = max(TRAIN_GRAD_TOL, GRAD_ERR_FACTOR * err)
+            worst_grad = max(worst_grad, (d, n))
+            if d > tol:
+                worst_over.append((n, d, tol))
+        dstat = max(float((card[2][n] - s).abs().max()) / max(1.0, float(s.abs().max()))
+                    for n, s in cpu[2].items())
+        n_tight = sum(1 for n, g in cpu[1].items()
+                      if GRAD_ERR_FACTOR * _rel(g, f64[1][n]) <= TRAIN_GRAD_TOL)
+        print(f"stage {2 if stage2 else 1}: loss card {card[0]:.7f} CPU {cpu[0]:.7f} rel |d| "
+              f"{dloss:.3e} (<= {TRAIN_LOSS_TOL}); gradients: largest rel L2 |d| "
+              f"{worst_grad[0]:.3e} ({worst_grad[1]}), {n_tight} of {len(cpu[1])} held to "
+              f"{TRAIN_GRAD_TOL}, the rest to {GRAD_ERR_FACTOR} x their float32 error; BN running "
+              f"statistics after the step max |d| {dstat:.3e} (<= {TRAIN_BN_TOL})", flush=True)
+        if dloss > TRAIN_LOSS_TOL or worst_over or dstat > TRAIN_BN_TOL:
+            raise SystemExit(f"chip_smoke: the card's float32 training step disagrees with the "
+                             f"CPU: {worst_over[:4]}")
+
+
+def train_loop_phase():
+    """TrainLoop.run_epoch over 3 in-memory stage-2 batches (bf16, batch 4,
+    720x960), then EvalAlterRes validation of the student on 2 batches: the
+    histogram counts every scored pixel."""
+    import copy
+
+    from arseg_tpu_torch.eval import EvalAlterRes
+    from arseg_tpu_torch.ops import _build
+    from arseg_tpu_torch.train.step import teacher_copy
+    from arseg_tpu_torch.train.trainer import TrainLoop
+
+    phase(f"training: TrainLoop.run_epoch over {TRAIN_EPOCH_BATCHES} batches of "
+          f"{TRAIN_EPOCH_BATCH}, then EvalAlterRes on {TRAIN_VAL_BATCHES} batches")
+    teacher_cpu, student_cpu = train_models()
+    student = copy.deepcopy(student_cpu).to("cuda", memory_format=torch.channels_last)
+    teacher = teacher_copy(teacher_cpu, "cuda", torch.bfloat16)
+    step = _step(_optimizer(student, "adam"), True, torch.bfloat16, "cuda", TRAIN_HW)
+    loader = [train_batch(TRAIN_EPOCH_BATCH, TRAIN_HW, seed=10 + i)
+              for i in range(TRAIN_EPOCH_BATCHES)]
+    _build.LAUNCHES.clear()
+    mean_loss, t = _sync_ms(lambda: TrainLoop("cuda", verbose=False).run_epoch(
+        step, student, teacher, loader, 0))
+    launches = dict(_build.LAUNCHES)
+    expect_launches(launches, {"creff_qkv_fused": TRAIN_EPOCH_BATCHES,
+                               "warp_bilinear": TRAIN_EPOCH_BATCHES}, "TrainLoop")
+    if not np.isfinite(mean_loss) or not student.training:
+        raise SystemExit("chip_smoke: TrainLoop.run_epoch failed")
+    val = make_eval_batches(TRAIN_VAL_BATCHES, EVAL_BATCH, (H, W), seed=5)
+    scored = sum(int((b["label"] != IGNORE).sum()) for b in val)
+    hist = EvalAlterRes(scale=SCALE, dtype=torch.bfloat16, device="cuda").histogram(
+        teacher_cpu, student, val, N_CLASSES)
+    print(f"TrainLoop: {TRAIN_EPOCH_BATCHES} steps in {t:.1f} ms, mean loss {mean_loss:.5f}, "
+          f"launches {launches}; EvalAlterRes histogram sum {int(hist.sum())} (scored pixels "
+          f"{scored})", flush=True)
+    if int(hist.sum()) != scored:
+        raise SystemExit("chip_smoke: validation's histogram does not count every scored pixel")
+    del student, teacher
+    torch.cuda.empty_cache()
+    return launches
+
+
+def checkpoint_phase():
+    """save_checkpoint after two bf16 Adam steps at 256x320, then
+    load_checkpoint into a fresh model and a fresh optimizer: every tensor
+    bit-equal."""
+    import copy
+    import tempfile
+
+    from arseg_tpu_torch.train.step import teacher_copy
+    from arseg_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    phase("training: checkpoint round trip")
+    teacher_cpu, student_cpu = train_models()
+    student = copy.deepcopy(student_cpu).to("cuda", memory_format=torch.channels_last)
+    teacher = teacher_copy(teacher_cpu, "cuda", torch.bfloat16)
+    hw = EVAL_SMALL_HW
+    opt = _optimizer(student, "adam")
+    step = _step(opt, True, torch.bfloat16, "cuda", hw)
+    batch = train_batch(PARITY_BATCH, hw, seed=6)
+    for _ in range(2):
+        step(student, teacher, batch)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/PSPNet_resnet18_{SCALE}_1_.pth"
+        save_checkpoint(path, student, opt, dict(epoch=1, miou=0.5))
+        ck = load_checkpoint(path)
+    fresh = copy.deepcopy(student_cpu).to("cuda", memory_format=torch.channels_last)
+    fresh.load_state_dict(ck["state_dict"], strict=True)
+    fresh_opt = _optimizer(fresh, "adam")
+    fresh_opt.load_state_dict(ck["optimizer"])
+    sd, fresh_sd = student.state_dict(), fresh.state_dict()
+    pairs = [(sd[k], fresh_sd[k]) for k in sd]
+    st, fresh_st = opt.state_dict()["state"], fresh_opt.state_dict()["state"]
+    pairs += [(st[i][k], fresh_st[i][k]) for i in st for k in st[i]]
+    same = all(torch.equal(a.cpu(), b.cpu()) for a, b in pairs)
+    print(f"checkpoint: {len(pairs)} tensors, bit-equal {same}, updates "
+          f"{fresh_opt.updates} (saved {opt.updates}), metadata {ck['metadata']}", flush=True)
+    if not same or fresh_opt.updates != opt.updates:
+        raise SystemExit("chip_smoke: the checkpoint round trip changed a tensor")
+
+
+def training_phase(smi):
+    """The training path: bf16 steps at full width, the card against the
+    CPU, the epoch loop with validation, the checkpoint round trip."""
+    launches = train_steps_phase(smi)
+    train_parity_phase()
+    launches["camvid-bise18 TrainLoop"] = train_loop_phase()
+    checkpoint_phase()
+    return launches
+
+
 def timed(fn, name):
     t0 = time.perf_counter()
     out = fn()
@@ -1162,7 +1489,8 @@ def main():
              **timed(lambda: cityscapes_phase("cityscapes-psp18"), "cityscapes-psp18 pipeline"),
              **timed(multi_gop_phase, "camvid-bise18 multi-GOP"),
              **timed(lambda: streaming_phase(smi), "camvid-bise18 streaming"),
-             **timed(eval_phase, "eval engines")}
+             **timed(eval_phase, "eval engines"),
+             **timed(lambda: training_phase(smi), "training")}
     kernels = []
     # each kernel in bfloat16 at the shape of the first path that runs it;
     # its other shapes beside it

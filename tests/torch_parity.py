@@ -18,3 +18,10 @@ def randomize_bn_tree(tree, rng):
             }
         return {k: randomize_bn_tree(v, rng) for k, v in tree.items()}
     return np.asarray(tree)
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| of two arrays (0 when both are 0)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    nb = np.linalg.norm(b)
+    return float(np.linalg.norm(a - b) / nb) if nb else float(np.linalg.norm(a))
