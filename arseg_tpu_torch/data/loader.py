@@ -9,6 +9,15 @@ PIL/cv2/numpy-bound and releases the GIL. ``device_prefetch`` copies each
 batch to the device from pinned host memory with ``non_blocking=True``,
 two batches ahead of the consumer, so the copies overlap the steps before
 them.
+
+Data parallel (``group``, a ``parallel.DataGroup`` of n ranks): every
+rank draws the same order from the same seed, and rank r yields rows
+[r*b/n, (r+1)*b/n) of each batch of b, so that the ranks' batches together
+are the one-process batch. A dataset whose ``rng`` is a
+``transform.SampleRng`` has it seeded before each sample from a number the
+loader draws once an epoch (after the shuffle, the same on every rank) and
+the sample's place in the epoch, so a sample is augmented alike whichever
+rank or thread reads it.
 """
 
 import collections
@@ -18,6 +27,8 @@ import threading
 
 import numpy as np
 import torch
+
+from arseg_tpu_torch.data.transform import SampleRng
 
 
 def _stack(samples):
@@ -37,7 +48,14 @@ class Loader:
         drop_last=False,
         seed=None,
         prefetch=4,
+        group=None,
     ):
+        if group is not None and group.size > 1:
+            if batch_size % group.size or not drop_last or seed is None:
+                raise ValueError("a data-parallel loader needs a batch size that divides over "
+                                 "the ranks, drop_last=True and a seed (every rank draws the "
+                                 "same order)")
+        self.group = group
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -53,17 +71,33 @@ class Loader:
         return -(-n // self.batch_size)
 
     def _batches(self):
+        """This rank's (place in the epoch, sample index) pairs of each
+        batch."""
         idx = list(range(len(self.dataset)))
         if self.shuffle:
             self.rng.shuffle(idx)
+        lo, hi = 0, self.batch_size
+        if self.group is not None and self.group.size > 1:
+            k = self.batch_size // self.group.size
+            lo, hi = self.group.rank * k, (self.group.rank + 1) * k
         for i in range(0, len(idx), self.batch_size):
             chunk = idx[i : i + self.batch_size]
             if len(chunk) < self.batch_size and self.drop_last:
                 return
-            yield chunk
+            yield [(i + j, chunk[j]) for j in range(lo, min(hi, len(chunk)))]
 
     def __iter__(self):
         batches = list(self._batches())
+        sample_rng = getattr(self.dataset, "rng", None)
+        if not isinstance(sample_rng, SampleRng):
+            sample_rng = None
+        epoch_seed = self.rng.getrandbits(64) if sample_rng is not None else 0
+
+        def read(place, i):
+            if sample_rng is not None:
+                sample_rng.seed((epoch_seed << 32) + place)
+            return self.dataset[i]
+
         out_q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -87,7 +121,7 @@ class Loader:
                 if stop.is_set():
                     return
                 try:
-                    batch = _stack([self.dataset[i] for i in batches[bi]])
+                    batch = _stack([read(place, i) for place, i in batches[bi]])
                 except Exception as e:  # surface in consumer
                     batch = e
                 with results_lock:

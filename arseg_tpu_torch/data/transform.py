@@ -11,11 +11,35 @@ V2 variant actually used — multiplies MV magnitude by the scale,
 
 RNG: a shared python `random.Random` instance passed at construction keeps
 draw order identical to the reference (which uses the global `random`).
+A ``SampleRng`` in its place gives each sample draws of its own, which the
+``Loader`` seeds from the sample's place in the epoch: the trainers use it,
+so that a sample's augmentation is the same whichever thread or rank reads
+it.
 """
 
 import random as _random
+import threading
 
 import numpy as np
+
+
+class SampleRng:
+    """A drop-in for the shared ``random.Random``: every draw comes from a
+    generator of the calling thread, which ``seed(s)`` starts anew. The
+    ``Loader`` seeds it before each sample it reads."""
+
+    def __init__(self):
+        self._local = threading.local()
+
+    def seed(self, s):
+        self._local.rng = _random.Random(s)
+
+    def __getattr__(self, name):  # random(), uniform(), choice(), ...
+        local = self.__dict__["_local"]
+        rng = getattr(local, "rng", None)
+        if rng is None:
+            rng = local.rng = _random.Random()
+        return getattr(rng, name)
 
 
 def _image():

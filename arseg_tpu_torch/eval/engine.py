@@ -25,9 +25,16 @@ The JAX engines pad a ragged last batch (``_equalized``, ``_pad_rows``) to
 the first batch's row count, so that every step shares one compiled shape.
 Eager PyTorch needs no fixed shape, and padded rows carry the ignore label
 and add nothing to the histogram, so the port runs each batch as it comes
-and the result is the same. The JAX ``mesh`` (data-parallel eval with a
-histogram all-reduce) and ``prefetch`` (a host stage that stages batches
-on the device ahead) are not ported.
+and the result is the same.
+
+``mesh`` (a ``parallel.DataGroup`` of n ranks, each running the engine on
+the same loader): each batch is padded to a multiple of n rows, the pad
+rows zero frames and flows with the ignore label (``engine.py:199-201`` of
+the JAX package), and each rank runs its contiguous rows and counts them
+into its int64 histogram; ``histogram`` returns the ranks' sum
+(``parallel.psum_hist``), the same on every rank. ``predictions`` yields
+this rank's rows. The JAX ``prefetch`` (a host stage that stages batches on
+the device ahead) is not ported.
 """
 
 import torch
@@ -37,6 +44,7 @@ from arseg_tpu_torch._device import resolve_device
 from arseg_tpu_torch.eval.metrics import confusion_update, miou_from_hist
 from arseg_tpu_torch.gop.pipeline import ARPipeline, device_frames, place_model
 from arseg_tpu_torch.ops.warp import scale_and_resize_flow
+from arseg_tpu_torch.parallel.group import check_group, pad_rows, psum_hist, shard_batch
 
 
 def _resize(x, hw):
@@ -44,26 +52,35 @@ def _resize(x, hw):
 
 
 class _Engine:
-    def __init__(self, scale=0.5, ignore_label=255, nanmean=False, dtype=None, device=None):
+    def __init__(self, scale=0.5, ignore_label=255, nanmean=False, mesh=None, dtype=None,
+                 device=None):
         self.scale = scale
         self.ignore_label = ignore_label
         self.nanmean = nanmean
+        self.mesh = check_group(mesh)
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
+
+    def _batches(self, loader):
+        """The loader's batches, each cut to this rank's rows under a mesh."""
+        n = 1 if self.mesh is None else self.mesh.size
+        for batch in loader:
+            yield shard_batch(pad_rows(batch, n, {"label": self.ignore_label}), self.mesh)
 
     def _label(self, batch):
         return torch.as_tensor(batch["label"], device=self.device)
 
     def _histogram(self, predictions, n_classes, progress):
         """The int64 confusion histogram [n, n] of the (label, map) pairs,
-        on the device."""
+        on the device, summed over the mesh's ranks."""
         hist = torch.zeros((n_classes, n_classes), dtype=torch.int64, device=self.device)
         with torch.inference_mode():
             for label, pred in predictions:
                 hist = confusion_update(hist, label, pred, n_classes, self.ignore_label)
                 if progress:
                     progress()
-        return hist
+            return psum_hist(hist, self.mesh)
 
     def __call__(self, *args, **kwargs):
         """The mIoU of ``histogram(*args, **kwargs)``, as a float."""
@@ -77,9 +94,10 @@ class EvalConstRes(_Engine):
 
     @torch.inference_mode()
     def predictions(self, model, loader):
-        """(label, int32 class map) of each batch, on the device."""
+        """(label, int32 class map) of each batch (this rank's rows under a
+        mesh), on the device."""
         model = place_model(model, self.device, self.dtype)
-        for batch in loader:
+        for batch in self._batches(loader):
             label = self._label(batch)
             image = device_frames(batch["image"], self.device, self.dtype)
             h, w = image.shape[-2:]
@@ -99,9 +117,10 @@ class EvalAlterRes(_Engine):
 
     @torch.inference_mode()
     def predictions(self, highres_model, model, loader):
-        """(label, int32 class map) of each batch, on the device."""
+        """(label, int32 class map) of each batch (this rank's rows under a
+        mesh), on the device."""
         pipe = ARPipeline(highres_model, model, self.scale, dtype=self.dtype, device=self.device)
-        for batch in loader:
+        for batch in self._batches(loader):
             label = self._label(batch)
             ref_feat = pipe.hr_model.forward_key(pipe._frames(batch["ref_image"]))[-1]
             flow = torch.as_tensor(batch["flow"])  # split into planes on the host

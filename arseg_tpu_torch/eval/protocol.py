@@ -10,8 +10,12 @@ and write
 with ``np.savetxt``'s default format, as the JAX protocol and the released
 evaluation results do. Checkpoints: a ``.pth`` loads directly, a JAX
 ``.npz`` through ``state_dict_from_jax`` (``utils/checkpoint.py``). The
-readers are imported inside ``run_protocol``. Data-parallel evaluation
-(``mesh``) is not ported.
+readers are imported inside ``run_protocol``.
+
+``mesh`` (a ``parallel.DataGroup``; every rank runs ``run_protocol``): the
+engines spread each batch's frames over the ranks and sum their histograms,
+the batch is at least the group's size (the JAX protocol's rule), every
+rank returns the same numbers, and rank 0 alone writes the files and logs.
 """
 
 import os
@@ -22,6 +26,7 @@ import numpy as np
 from arseg_tpu_torch._device import resolve_device
 from arseg_tpu_torch.eval.engine import EvalAlterRes, EvalConstRes
 from arseg_tpu_torch.models import build_model
+from arseg_tpu_torch.parallel.group import check_group, is_main
 from arseg_tpu_torch.utils.checkpoint import load_weights
 
 DATASET_INFO = {
@@ -73,11 +78,12 @@ def _seq_paths(data_root, dataset, bitrate, gop, ref_gap):
             os.path.join(seq, "frames"))
 
 
-def _write_result(result_dir, name, mious):
+def _write_result(result_dir, name, mious, mesh=None):
     mious = list(mious)
     mious.append(float(np.mean(mious)))
-    os.makedirs(result_dir, exist_ok=True)
-    np.savetxt(os.path.join(result_dir, name), np.asarray(mious))
+    if is_main(mesh):
+        os.makedirs(result_dir, exist_ok=True)
+        np.savetxt(os.path.join(result_dir, name), np.asarray(mious))
     return mious
 
 
@@ -95,15 +101,15 @@ def run_protocol(dataset="camvid", backbone="psp18", mode=(1, 1, 1), gop=12, tes
     written}."""
     from arseg_tpu_torch.data import Loader
 
-    if mesh is not None:
-        from arseg_tpu_torch.train.step import DATA_PARALLEL
-
-        raise NotImplementedError(DATA_PARALLEL)
-    device = resolve_device(device)
+    mesh = check_group(mesh)
+    device = resolve_device(device if device is not None or mesh is None else mesh.device)
     info = DATASET_INFO[dataset]
     bitrate, n_classes = info["bitrate"], info["n_classes"]
     backend = f"{dataset}-{backbone}"
-    eval_kw = dict(dtype=dtype, device=device)
+    if mesh is not None:
+        batch_size = max(batch_size, mesh.size)
+    eval_kw = dict(mesh=mesh, dtype=dtype, device=device)
+    verbose = verbose and is_main(mesh)
     results = {}
 
     hr_model = _model(backend, False, find_hr_snapshot(ckpt_root, dataset, backbone), device)
@@ -132,7 +138,7 @@ def run_protocol(dataset="camvid", backbone="psp18", mode=(1, 1, 1), gop=12, tes
             log(ref_gap, "HR", "1.0x", miou)
             mious.append(miou)
         results["HR"] = _write_result(
-            result_dir, f"{dataset}-{backbone}-1.0x-resolution-exp-{name}", mious)
+            result_dir, f"{dataset}-{backbone}-1.0x-resolution-exp-{name}", mious, mesh)
 
     if mode[2]:  # AR
         ar_model = _model(backend, True, find_scale_snapshot(ckpt_root, dataset, backbone, "AR",
@@ -151,7 +157,8 @@ def run_protocol(dataset="camvid", backbone="psp18", mode=(1, 1, 1), gop=12, tes
             log(ref_gap, "AR", test_scale, miou)
             mious.append(miou)
         results["AR"] = _write_result(
-            result_dir, f"{dataset}-{backbone}-AR-{test_scale}x-resolution-exp-{name}", mious)
+            result_dir, f"{dataset}-{backbone}-AR-{test_scale}x-resolution-exp-{name}", mious,
+            mesh)
 
     if mode[1]:  # LR
         lr_model = _model(backend, True, find_scale_snapshot(ckpt_root, dataset, backbone, "LR",
@@ -164,6 +171,7 @@ def run_protocol(dataset="camvid", backbone="psp18", mode=(1, 1, 1), gop=12, tes
             log(ref_gap, "LR", test_scale, miou)
             mious.append(miou)
         results["LR"] = _write_result(
-            result_dir, f"{dataset}-{backbone}-{test_scale}x-resolution-exp-{name}", mious)
+            result_dir, f"{dataset}-{backbone}-{test_scale}x-resolution-exp-{name}", mious,
+            mesh)
 
     return results

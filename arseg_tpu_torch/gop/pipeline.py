@@ -33,6 +33,13 @@ time (``lax.map``), which bounded memory and compile time on the TPU; here
 they run batched. ``streaming_step`` serves a frame a call with the
 keyframe feature kept on the device between calls.
 
+Data parallel (``parallel.DataGroup``, one process per card, every rank
+calling with the same inputs): ``sharded_step`` serves S streams, each rank
+its S/n, and ``gop_parallel_step`` spreads one GOP's frames over the ranks,
+each rank computing the keyframe's HR branch itself; both put the maps
+together with ``parallel.gather_rows`` (the counterparts of
+``arseg_tpu/gop/pipeline.py:392-478``).
+
 Each stage runs under a ``torch.profiler.record_function`` span named
 ``gop.<stage>`` (a no-op unless a profiler is recording), which
 ``tools_torch_profile_gop.py`` reads.
@@ -47,6 +54,7 @@ from torch.profiler import record_function
 from arseg_tpu_torch._device import resolve_device
 from arseg_tpu_torch.models.registry import phase2_argmax_head
 from arseg_tpu_torch.ops.warp import _resize_plane_bilinear, scale_and_resize_flow, warp_feature
+from arseg_tpu_torch.parallel.group import check_group, gather_rows, pad_rows, shard_batch
 
 
 def _resize_flow_planes(flow_planes, feat_hw):
@@ -229,6 +237,49 @@ class ARPipeline:
 
     def __call__(self, keyframe, frames, flows):
         return self.gop_step(keyframe, frames, flows)
+
+    def sharded_step(self, group):
+        """Multi-stream serving over a ``parallel.DataGroup``: S independent
+        streams, each rank running its S/n (contiguous) streams batched
+        (``multi_gop_step``: one HR forward, one phase-1 forward and one
+        launch of each kernel for all of them), no traffic between ranks
+        until the maps are put together.
+        Returns fn(keyframes [S, H, W, 3], frames [S, G-1, H, W, 3], fx, fy
+        [S, G-1, Hf, Wf]) -> int32 maps [S, G, H, W] of every stream, on
+        every rank; each rank reads only its streams' rows. S must be a
+        multiple of the group's size."""
+        group = check_group(group)
+
+        @torch.inference_mode()
+        def fn(keyframes, frames, fx, fy):
+            local = shard_batch(dict(kf=keyframes, fr=frames, fx=fx, fy=fy), group)
+            maps = self.multi_gop_step(local["kf"], local["fr"], (local["fx"], local["fy"]))
+            return gather_rows(maps, group)
+
+        return fn
+
+    def gop_parallel_step(self, group):
+        """Latency scale-out for one stream over a ``parallel.DataGroup``:
+        every rank runs the HR branch on the keyframe, and the GOP's G-1
+        frames, zero-padded to a multiple of n, are spread over the ranks,
+        each running phase 1, the warp, the fusion and the head on its
+        frames. The maps are gathered and the pad frames' dropped. Returns
+        fn with ``gop_step``'s single-GOP signature (keyframe [1, H, W, 3],
+        frames [G-1, H, W, 3], flows (fx, fy) [G-1, Hf, Wf] or packed
+        [G-1, Hf, Wf, 2]) -> int32 maps [G, H, W], on every rank."""
+        group = check_group(group)
+        n = 1 if group is None else group.size
+
+        @torch.inference_mode()
+        def fn(keyframe, frames, flows):
+            fx, fy = flows if isinstance(flows, tuple) else (flows[..., 0], flows[..., 1])
+            g1 = frames.shape[0]
+            local = shard_batch(pad_rows(dict(fr=frames, fx=fx, fy=fy), n), group)
+            out = self.gop_step(keyframe, local["fr"], (local["fx"], local["fy"]))
+            maps = gather_rows(out[1:], group)[:g1]
+            return torch.cat([out[:1], maps])
+
+        return fn
 
     def scan_step(self, keyframes, frames, fx, fy):
         """Clip mode: K GOPs one after another. keyframes [K, H, W, 3];

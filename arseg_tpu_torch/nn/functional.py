@@ -13,6 +13,13 @@ with momentum 0.1, which is the JAX ``batch_norm`` followed by
 of the models in eval mode; training runs them in train mode.
 ``Dropout2d`` draws its masks from an explicit generator, as the JAX
 ``dropout2d`` draws them from the context's key.
+Inside ``parallel.synced(group)`` (the data-parallel step's
+``bn_mode="sync"``) a train-mode BatchNorm takes its statistics over the
+whole batch of the group's ranks, as BN does under the JAX package's jitted
+step over a sharded batch, and ``Dropout2d`` draws the whole batch's masks
+and keeps this rank's rows, so that the ranks together compute what one
+process computes on the whole batch. ``torch.nn.SyncBatchNorm`` is not used:
+it refuses CPU tensors.
 The s2d/s2d4 stems of the JAX file are TPU layout rewrites of the plain
 7x7/s2 conv and are not ported.
 """
@@ -20,6 +27,8 @@ The s2d/s2d4 stems of the JAX file are TPU layout rewrites of the plain
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from arseg_tpu_torch.parallel.group import all_reduce_sum, sync_group
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -33,8 +42,48 @@ def resize_bilinear_nchw(x, hw, align_corners):
     return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=align_corners)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (the same state-dict keys), whose train-mode
+    statistics are the whole group's batch inside ``parallel.synced``."""
+
+    def forward(self, x):
+        group = sync_group()
+        if not self.training or group is None:
+            return super().forward(x)
+        return _sync_batch_norm(self, x, group)
+
+
+def _sync_batch_norm(bn, x, group):
+    """Train-mode BN over every rank's rows: the mean, then the biased
+    variance about it (two passes, as ``jnp.var``), each summed over the
+    ranks by a differentiable all-reduce, in float32; the running
+    statistics move towards the mean and the unbiased variance of the
+    N = every rank's N*H*W values."""
+    xf = x.float()
+    dims = (0, 2, 3)
+    local_n = xf.new_tensor([x.numel() // x.shape[1]])
+    sums = all_reduce_sum(torch.cat([xf.sum(dims), local_n]), group)
+    n = sums[-1].detach()
+    mean = sums[:-1] / n
+    centred = xf - mean.view(1, -1, 1, 1)
+    var = all_reduce_sum((centred * centred).sum(dims), group) / n
+    scale = torch.rsqrt(var + bn.eps)
+    if bn.affine:
+        scale = scale * bn.weight.float()
+    out = centred * scale.view(1, -1, 1, 1)
+    if bn.affine:
+        out = out + bn.bias.float().view(1, -1, 1, 1)
+    if bn.track_running_stats:
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            bn.running_var.mul_(1 - m).add_(var.detach() * (n / (n - 1).clamp(min=1)), alpha=m)
+            bn.num_batches_tracked.add_(1)
+    return out.to(x.dtype)
+
+
 def batch_norm(c):
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBNReLU(nn.Module):
@@ -56,7 +105,9 @@ class Dropout2d(nn.Module):
     the identity in eval mode or at p = 0. The [N, C, 1, 1] masks are
     drawn from ``self.generator`` (a ``torch.Generator`` on the input's
     device; torch's default generator when None), which
-    ``set_dropout_generator`` sets. Owns no state-dict keys."""
+    ``set_dropout_generator`` sets; inside ``parallel.synced`` the masks
+    of the whole group's batch, of which this rank keeps its rows. Owns
+    no state-dict keys."""
 
     def __init__(self, p):
         super().__init__()
@@ -67,8 +118,11 @@ class Dropout2d(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty((x.shape[0], x.shape[1], 1, 1), device=x.device)
+        group = sync_group()
+        n, rank = (x.shape[0], 0) if group is None else (x.shape[0] * group.size, group.rank)
+        mask = torch.empty((n, x.shape[1], 1, 1), device=x.device)
         mask.bernoulli_(keep, generator=self.generator)
+        mask = mask[rank * x.shape[0]:(rank + 1) * x.shape[0]]
         return x * mask.to(x.dtype) / keep
 
 

@@ -6,7 +6,11 @@ together, linked into a shared library with a plain C interface
 (``csrc/kernels.h``) and loaded with ctypes. No source includes the
 PyTorch headers, so a build takes seconds. The library's name carries a
 hash of the sources and flags; a process that finds it built already loads
-it. The launchers return ``cudaGetLastError()`` and the callables below
+it. Processes that build at once (the ranks of a data-parallel run) are
+safe: each compiles in a directory of its own and publishes the library
+with an atomic rename, so they only repeat each other's work. Build in the
+parent before spawning the ranks (as ``chip_smoke.py`` does) to compile
+once. The launchers return ``cudaGetLastError()`` and the callables below
 raise on a non-zero code.
 
 The callables: ``creff_qkv_fused(out, lr_up, ref, taps, bias, kh, kw)``,

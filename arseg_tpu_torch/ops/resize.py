@@ -7,7 +7,11 @@ tables (``_linear_gather``, ``_linear_matrix``, ``_nearest_index``,
 resize in ``ops/warp.py`` and the pools repeat its arithmetic. Their tensor
 forms are copied to a device once: a copy from pageable host memory waits
 for the device's queue, so a copy per call would stall the host behind
-every kernel queued before it.
+every kernel queued before it. They are made outside inference mode
+whatever the first caller's mode: a table first made under
+``torch.inference_mode`` (serving, eval) would be an inference tensor,
+which autograd refuses to save, and a later training step of the same
+shape in the same process would fail.
 """
 
 from functools import lru_cache
@@ -69,6 +73,7 @@ def _adaptive_avg_matrix(in_size: int, out_size: int):
 
 
 @lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _linear_gather_on(in_size: int, out_size: int, align_corners: bool, device, dtype):
     """``_linear_gather``'s tables as tensors on `device`, copied once."""
     i0, i1, w = _linear_gather(in_size, out_size, align_corners)
@@ -77,12 +82,14 @@ def _linear_gather_on(in_size: int, out_size: int, align_corners: bool, device, 
 
 
 @lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _nearest_index_on(in_size: int, out_size: int, device):
     """``_nearest_index`` as a tensor on `device`, copied once."""
     return torch.from_numpy(_nearest_index(in_size, out_size)).to(device)
 
 
 @lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _adaptive_avg_matrix_on(in_size: int, out_size: int, device):
     """``_adaptive_avg_matrix`` as a tensor on `device`, copied once."""
     return torch.from_numpy(_adaptive_avg_matrix(in_size, out_size)).to(device)

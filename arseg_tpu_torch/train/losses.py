@@ -20,12 +20,43 @@ kth) + kth * (the tied slots), kth the n_min-th largest, from one sort.
 That equals topk(n_min).mean() with ties at kth, at kth == 0 (fewer
 positive losses than n_min) and when every pixel is ignored, and it needs
 no read of the device from the host.
+
+Data parallel (inside ``parallel.synced(group)``, the step's
+``bn_mode="sync"``): every loss is this rank's share of the whole batch's
+loss, so that the ranks' shares, and their gradients, sum to the loss of
+one process on the whole batch, as the JAX package's jitted step over a
+sharded batch computes it. A mean is this rank's sum over the whole
+batch's count. OHEM takes its n_min, its hard count and its kth loss over
+the whole batch: the ranks' flat losses are gathered (``gather_rows``, an
+all-reduce into a zero-filled buffer, differentiable), every rank computes
+the whole batch's OHEM loss from that one sort, and its share is
+1/size of it. The gathered losses lie in rank order, which is the whole
+batch's order, so the sort, its ties and the kth pixel's gradient are the
+one-process step's.
 """
 
 import torch
 import torch.nn.functional as F
 
+from arseg_tpu_torch.parallel.group import all_reduce_sum, gather_rows, sync_group
+
 IGNORE_LABEL = 255
+
+
+def _share(total, count):
+    """``total / count`` where both are this rank's: the whole batch's
+    count inside ``parallel.synced`` (module docstring)."""
+    group = sync_group()
+    count = torch.as_tensor(count, device=total.device)
+    if group is not None:
+        count = all_reduce_sum(count, group)
+    return total / count.clamp(min=1)
+
+
+def _mean(x):
+    """``x.mean()``, or this rank's share of the whole batch's inside
+    ``parallel.synced``."""
+    return x.mean() if sync_group() is None else _share(x.sum(), x.numel())
 
 
 def _picked(log_probs, labels, ignore_label):
@@ -40,7 +71,7 @@ def nll_loss(log_probs, labels, ignore_label=IGNORE_LABEL):
     """log_probs [N, C, H, W] (log-softmax), labels [N, H, W]: the mean over
     the kept pixels (0 when none is kept)."""
     losses, keep = _picked(log_probs.float(), labels, ignore_label)
-    return losses.sum() / keep.sum().clamp(min=1)
+    return _share(losses.sum(), keep.sum())
 
 
 def cross_entropy(logits, labels, ignore_label=IGNORE_LABEL):
@@ -51,14 +82,19 @@ def bce_with_logits(logits, targets):
     """BCEWithLogitsLoss, mean reduction; logits, targets [N, C]."""
     logits, targets = logits.float(), targets.float()
     losses = logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
-    return losses.mean()
+    return _mean(losses)
 
 
 def ohem_ce(logits, labels, thresh=0.7, ignore_label=IGNORE_LABEL):
     """OhemCELoss: the mean of the hard examples' CE (module docstring)."""
     losses, keep = _picked(F.log_softmax(logits.float(), dim=1), labels, ignore_label)
     flat = losses.reshape(-1)
-    n_min = keep.sum() // 16
+    n_keep = keep.sum()
+    group = sync_group()
+    if group is not None:  # the whole batch's losses, in its order, on every rank
+        flat = gather_rows(flat[None], group).reshape(-1)
+        n_keep = all_reduce_sum(n_keep, group)
+    n_min = n_keep // 16
     # -log(thresh) in float32, as the JAX package computes it; a host scalar
     t = float(-torch.log(torch.tensor(thresh, dtype=torch.float32)))
     hard = flat > t
@@ -70,15 +106,16 @@ def ohem_ce(logits, labels, thresh=0.7, ignore_label=IGNORE_LABEL):
     above = flat > kth
     n = n_min.clamp(min=1)
     top = ((flat * above).sum() + kth * (n - above.sum())) / n
-    return torch.where(n_hard >= n_min, enough, top)
+    loss = torch.where(n_hard >= n_min, enough, top)
+    return loss if group is None else loss / group.size
 
 
 def mse(a, b):
-    return ((a.float() - b.float()) ** 2).mean()
+    return _mean((a.float() - b.float()) ** 2)
 
 
 def kl_div_log_target(log_p, log_q):
     """KLDivLoss(log_target=True, reduction='mean'): the mean over all
     elements of exp(log_q) * (log_q - log_p)."""
     log_p, log_q = log_p.float(), log_q.float()
-    return (torch.exp(log_q) * (log_q - log_p)).mean()
+    return _mean(torch.exp(log_q) * (log_q - log_p))

@@ -36,19 +36,41 @@ mean of the micro-batches' (mean, unbiased variance), as the JAX
 each leaves its own statistics in the running buffers, which are read and
 restored; torch's own k sequential updates would give another result.
 
-Data parallelism (``mesh``, ``bn_mode="master"``) is not ported.
+Data parallel (``mesh``: a ``parallel.DataGroup`` of n ranks, one process
+per card; the JAX keyword's name is kept): each rank steps its own copy of
+the model on its rows of the batch (``parallel.shard_batch``, or a
+``Loader`` given the group), and the copies stay equal.
+
+- ``bn_mode="sync"`` (the JAX default): the forward and backward run inside
+  ``parallel.synced``, so BN normalises with the whole batch's statistics
+  and moves the running statistics with them, dropout draws the whole
+  batch's masks, and the loss is this rank's share of the whole batch's
+  loss (OHEM included: ``train/losses.py``); the gradients' sum over the
+  ranks (one coalesced all-reduce) is then the gradient of the whole
+  batch's loss, as under the JAX package's jitted step over a sharded
+  batch. The metrics are summed the same way.
+- ``bn_mode="master"`` (``nn.DataParallel``'s semantics): each rank
+  normalises with its own rows' statistics and takes the mean loss of its
+  rows; the gradients and metrics are averaged over the ranks, and every
+  rank's BN running statistics are set to rank 0's after its update
+  (``broadcast``), as the JAX step keeps replica 0's update alone
+  (``arseg_tpu/train/step.py:118-131``).
+
+A group of one rank exchanges nothing: the step is the one-device step.
+``accum_steps > 1`` with more than one rank, or with ``bn_mode="master"``,
+raises, as in the JAX package.
 """
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.func import functional_call
 
 from arseg_tpu_torch._device import resolve_device
 from arseg_tpu_torch.gop.pipeline import place_model
 from arseg_tpu_torch.nn.functional import BN_MOMENTUM, set_dropout_generator
+from arseg_tpu_torch.parallel.group import check_group, coalesced, synced
 
-DATA_PARALLEL = ("data-parallel training (a mesh, bn_mode='master') is not ported: "
-                 "ROADMAP.md Queue A 3, data parallel")
 IMAGE_KEYS = ("image", "ref_image")
 
 
@@ -91,12 +113,20 @@ def _student(model, compute_dtype):
 def make_train_step(loss_fn, optimizer, mesh=None, bn_mode="sync", accum_steps=1,
                     compute_dtype=None, device=None):
     """optimizer: a ``ScheduledOptimizer`` over ``model``'s trainable
-    parameters. See the module docstring."""
+    parameters; mesh: a ``parallel.DataGroup`` or None; device: the
+    group's device when None and a group is given. See the module
+    docstring."""
     if bn_mode not in ("sync", "master"):
         raise ValueError(f"bn_mode must be 'sync' or 'master', got {bn_mode!r}")
-    if mesh is not None or bn_mode != "sync":
-        raise NotImplementedError(DATA_PARALLEL)
-    device = resolve_device(device)
+    mesh = check_group(mesh)
+    if bn_mode == "master" and mesh is None:
+        raise ValueError("bn_mode='master' needs a mesh (per-replica stats)")
+    multi_device = mesh is not None and mesh.size > 1
+    if accum_steps > 1 and (multi_device or bn_mode != "sync"):
+        raise ValueError("accum_steps>1 is the single-device path "
+                         "(shard over the mesh instead)")
+    device = resolve_device(device if device is not None or mesh is None else mesh.device)
+    pg = mesh.process_group if multi_device else None
 
     def to_device(batch):
         out = {}
@@ -147,17 +177,45 @@ def make_train_step(loss_fn, optimizer, mesh=None, bn_mode="sync", accum_steps=1
             torch._foreach_mul_(grads, inv)
         return {k: v * inv for k, v in total.items()}
 
+    def reduce_step(metrics):
+        """The gradients (in place) and the metrics summed over the ranks
+        (sync) or averaged (master): one all-reduce per dtype."""
+        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        names = sorted(metrics)
+        values = [metrics[k].float().reshape(1) for k in names]
+
+        def reduce(flat):
+            dist.all_reduce(flat, group=pg)
+            if bn_mode == "master":
+                flat.div_(mesh.size)
+
+        coalesced(grads + values, reduce)
+        return {k: v.reshape(()) for k, v in zip(names, values)}
+
+    def keep_rank0_statistics(model):
+        stats = [b for m in _batch_norms(model) for b in (m.running_mean, m.running_var)]
+        coalesced(stats, lambda flat: dist.broadcast(flat, src=0, group=pg))
+
     def step(model, teacher, batch, generator=None):
-        """One update of ``model``; ``teacher`` as ``teacher_copy`` gives it;
-        ``generator`` the dropout masks' source. Returns the metrics."""
+        """One update of ``model`` (this rank's rows of the batch under a
+        mesh); ``teacher`` as ``teacher_copy`` gives it; ``generator`` the
+        dropout masks' source. Returns the metrics."""
         model.train()
         set_dropout_generator(model, generator)
         batch = to_device(batch)
         optimizer.zero_grad()
-        if accum_steps == 1:
-            metrics = forward_backward(model, teacher, batch)
-        else:
+        if accum_steps > 1:
             metrics = accumulate(model, teacher, batch)
+        elif not multi_device:
+            metrics = forward_backward(model, teacher, batch)
+        elif bn_mode == "sync":
+            with synced(mesh):
+                metrics = forward_backward(model, teacher, batch)
+            metrics = reduce_step(metrics)
+        else:
+            metrics = reduce_step(forward_backward(model, teacher, batch))
+            keep_rank0_statistics(model)
         optimizer.step()
         return metrics
 

@@ -1,6 +1,6 @@
 """The trainers — port of ``arseg_tpu/train/trainer.py``: phase 1 (the
 HR or plain LR image model, reference ``train.py:77-307``) and phase 2 (LR
-+ CReFF + FST, ``train_pair.py:91-429``) on one device.
++ CReFF + FST, ``train_pair.py:91-429``), on one device or data parallel.
 
 As in the JAX package, the per-dataset policy (crop size, scales, optimizer
 kind) lives in ``DATASET_POLICY``, and checkpoints carry explicit metadata
@@ -11,8 +11,19 @@ stage 2) on copies of the models; the models go back to train mode after.
 
 The readers (``arseg_tpu_torch.data``, which open files with PIL and cv2)
 are imported inside ``train_phase1``/``train_phase2``, so that importing
-this module imports neither. Data parallelism (``num_devices``, a mesh,
-``bn_mode="master"``) is not ported.
+this module imports neither. The training readers draw each sample's
+augmentation from a ``SampleRng`` that the loader seeds per sample.
+
+Data parallel: run one process per card (``torchrun --nproc_per_node N``,
+``init_process_group`` first); ``num_devices`` (all ranks when None) is
+clamped to the largest count that divides ``batch_size``
+(``parallel.data_group``), ``batch_size`` is the global batch, and each
+rank's loader yields its rows of it. ``bn_mode`` is the step's
+(``train/step.py``). Rank 0 alone prints and writes checkpoints; a resume
+is read by rank 0 and broadcast, and every rank starts from rank 0's
+weights. Validation runs the engines with the group (frames spread over
+the ranks, the histogram summed), so every rank takes the same decisions.
+A rank outside the clamped group returns (None, []) at once.
 """
 
 import os
@@ -27,9 +38,9 @@ from arseg_tpu_torch.nn.pspnet_semseg import PSPNetSemseg
 from arseg_tpu_torch.train.objectives import build_phase1_loss, build_phase2_loss
 from arseg_tpu_torch.train.optim import (cosine_schedule, make_optimizer, t_max_for,
                                          warmup_cosine_schedule)
-from arseg_tpu_torch.train.step import (DATA_PARALLEL, make_train_step, teacher_copy,
-                                         trainable_parameters)
-from arseg_tpu_torch.utils.checkpoint import load_weights, save_checkpoint
+from arseg_tpu_torch.parallel.group import broadcast_object, data_group, is_main, replicate
+from arseg_tpu_torch.train.step import make_train_step, teacher_copy, trainable_parameters
+from arseg_tpu_torch.utils.checkpoint import load_checkpoint, load_weights, save_checkpoint
 
 DATASET_POLICY = {
     "camvid": dict(
@@ -110,12 +121,14 @@ def dropout_generator(seed, epoch, device):
 
 
 class TrainLoop:
-    """The epoch loop both phases share."""
+    """The epoch loop both phases share; with a ``mesh`` (a
+    ``parallel.DataGroup``) its batches go to the group's device and rank 0
+    alone prints."""
 
-    def __init__(self, device=None, log_every=50, verbose=True):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, log_every=50, verbose=True, mesh=None):
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.log_every = log_every
-        self.verbose = verbose
+        self.verbose = verbose and is_main(mesh)
 
     def run_epoch(self, step_fn, model, teacher, loader, epoch, generator=None):
         """One pass of ``step_fn`` over ``loader``'s batches, copied to the
@@ -137,12 +150,10 @@ class TrainLoop:
         return float(torch.stack(losses).double().mean())
 
 
-def _check_flags(resume, snapshot, num_devices):
+def _check_flags(resume, snapshot):
     if resume and snapshot:
         raise ValueError("resume and snapshot are mutually exclusive: resume restores a full "
                          "trainer state, snapshot warm-starts weights with a fresh optimizer")
-    if num_devices not in (None, 1):
-        raise NotImplementedError(DATA_PARALLEL)
 
 
 def _optimizer(model, policy, snapshot, start_lr, t_max, frozen):
@@ -152,28 +163,31 @@ def _optimizer(model, policy, snapshot, start_lr, t_max, frozen):
     return make_optimizer(policy["optimizer"], cosine_schedule(start_lr, t_max), params)
 
 
-def _resume(path, model, optimizer, verbose):
+def _resume(path, model, optimizer, verbose, group=None):
     """True resume from a checkpoint these trainers wrote: the weights, the
     optimizer state (with the schedule's update count) and the epoch and
     best-mIoU cursors. As in the JAX package, the trainers save only when
     the validation mIoU improves, so a run resumes from its best epoch, and
-    the dropout generator is seeded anew rather than replayed. Returns
-    (start_epoch, max_miou)."""
-    ck = load_weights(model, path)
+    the dropout generator is seeded anew rather than replayed. With a
+    group, rank 0 reads the file and broadcasts it. Returns (start_epoch,
+    max_miou)."""
+    ck = broadcast_object(load_checkpoint(path) if is_main(group) else None, group)
+    model.load_state_dict(ck["state_dict"], strict=True)
     if ck["optimizer"] is None:
         raise ValueError(f"resume checkpoint {path!r} has no optimizer state; "
                          "use snapshot to warm-start from weights alone")
     optimizer.load_state_dict(ck["optimizer"])
     meta = ck["metadata"]
     start_epoch, max_miou = int(meta.get("epoch", 0)), float(meta.get("miou", 0.0))
-    if verbose:
+    if verbose and is_main(group):
         print(f"resuming from {path}: epoch {start_epoch}, best mIoU {max_miou:.4f}", flush=True)
     return start_epoch, max_miou
 
 
-def _save(models_path, backend, scale, epoch, model, optimizer, metadata):
-    save_checkpoint(os.path.join(models_path, f"PSPNet_{backend}_{scale}_{epoch + 1}_.pth"),
-                    model, optimizer, metadata)
+def _save(models_path, backend, scale, epoch, model, optimizer, metadata, group):
+    if is_main(group):
+        save_checkpoint(os.path.join(models_path, f"PSPNet_{backend}_{scale}_{epoch + 1}_.pth"),
+                        model, optimizer, metadata)
 
 
 def train_phase1(data_path, models_path, backend="resnet34", snapshot=None, batch_size=16,
@@ -185,9 +199,13 @@ def train_phase1(data_path, models_path, backend="resnet34", snapshot=None, batc
     """Phase 1. Returns (model, history): the trained model on the device
     and one dict (epoch, loss, miou) per validation."""
     from arseg_tpu_torch.data import CamVid, CityScapes, Loader
+    from arseg_tpu_torch.data.transform import SampleRng
 
-    _check_flags(resume, snapshot, num_devices)
-    device = resolve_device(device)
+    _check_flags(resume, snapshot)
+    group = data_group(num_devices, batch_size, device)
+    if group is None:
+        return None, []
+    device = group.device
     policy = DATASET_POLICY[dataset]
     os.makedirs(models_path, exist_ok=True)
     cropsize = cropsize or policy["cropsize"]
@@ -197,17 +215,18 @@ def train_phase1(data_path, models_path, backend="resnet34", snapshot=None, batc
     key = backend_key(model_type, dataset, backend)
 
     if dataset == "camvid":
-        train_ds = CamVid(data_path, cropsize=cropsize, mode="train", randomscale=randomscale)
+        train_ds = CamVid(data_path, cropsize=cropsize, mode="train", randomscale=randomscale,
+                          rng=SampleRng())
         val_ds = CamVid(data_path, mode="val")
     else:
         train_ds = CityScapes(data_path, model_type=model_type, cropsize=cropsize, mode="train",
-                              randomscale=randomscale)
+                              randomscale=randomscale, rng=SampleRng())
         val_ds = CityScapes(data_path, model_type=model_type, mode="val")
     train_loader = Loader(train_ds, batch_size=batch_size, shuffle=True,
                           num_workers=num_workers or policy["train_workers"], drop_last=True,
-                          seed=seed)
-    val_loader = Loader(val_ds, batch_size=1, shuffle=False, num_workers=policy["val_workers"],
-                        drop_last=True)
+                          seed=seed, group=group)
+    val_loader = Loader(val_ds, batch_size=group.size, shuffle=False,
+                        num_workers=policy["val_workers"], drop_last=False)
 
     model = build_train_model(model_type, dataset, backend, n_classes, fuse=False, seed=seed)
     if snapshot:
@@ -223,19 +242,21 @@ def train_phase1(data_path, models_path, backend="resnet34", snapshot=None, batc
         if not snapshot:
             frozen = (fc,)
         teacher = teacher_copy(teacher, device, compute_dtype)
-    model = model.to(device, memory_format=torch.channels_last)
+    model = replicate(model.to(device, memory_format=torch.channels_last), group)
 
     t_max = t_max_for(epochs, len(train_ds), batch_size)
     optimizer = _optimizer(model, policy, snapshot, start_lr, t_max, frozen)
     start_epoch, max_miou = 0, 0.0
     if resume:
-        start_epoch, max_miou = _resume(resume, model, optimizer, verbose)
+        start_epoch, max_miou = _resume(resume, model, optimizer, verbose, group)
 
     loss_fn = build_phase1_loss(model_type, dataset, cropsize, scale, alpha, feat_loss)
-    step_fn = make_train_step(loss_fn, optimizer, bn_mode=bn_mode, accum_steps=accum_steps,
-                              compute_dtype=compute_dtype, device=device)
-    loop = TrainLoop(device, verbose=verbose)
-    evaluator = EvalConstRes(scale=scale, ignore_label=255, nanmean=nanmean, device=device)
+    step_fn = make_train_step(loss_fn, optimizer, mesh=group, bn_mode=bn_mode,
+                              accum_steps=accum_steps, compute_dtype=compute_dtype, device=device)
+    loop = TrainLoop(verbose=verbose, mesh=group)
+    verbose = verbose and is_main(group)
+    evaluator = EvalConstRes(scale=scale, ignore_label=255, nanmean=nanmean, mesh=group,
+                             device=device)
     generator = dropout_generator(seed, start_epoch, device)
     history = []
     for epoch in range(start_epoch, epochs):
@@ -251,7 +272,7 @@ def train_phase1(data_path, models_path, backend="resnet34", snapshot=None, batc
             max_miou = miou
             _save(models_path, backend, scale, epoch, model, optimizer,
                   dict(dataset=dataset, backend=backend, scale=scale, epoch=epoch + 1, miou=miou,
-                       phase=1))
+                       phase=1), group)
     return model, history
 
 
@@ -267,9 +288,13 @@ def train_phase2(data_path, sequence_path, models_path, backend="resnet34", snap
     stage 2 (merge mode on the warped keyframe feature) from it on.
     Returns (model, history)."""
     from arseg_tpu_torch.data import CamVid, CamVidWithFlow, CityScapes, CityScapesWithFlow, Loader
+    from arseg_tpu_torch.data.transform import SampleRng
 
-    _check_flags(resume, snapshot, num_devices)
-    device = resolve_device(device)
+    _check_flags(resume, snapshot)
+    group = data_group(num_devices, batch_size, device)
+    if group is None:
+        return None, []
+    device = group.device
     policy = DATASET_POLICY[dataset]
     os.makedirs(models_path, exist_ok=True)
     cropsize = cropsize or policy["cropsize"]
@@ -286,12 +311,13 @@ def train_phase2(data_path, sequence_path, models_path, backend="resnet34", snap
         if with_motion:
             train_ds = CamVidWithFlow(data_path, cropsize=cropsize, mode="train",
                                       randomscale=randomscale, load_pair=True, ref_gap=ref_gap,
-                                      flow_path=mv_dir, ref_path=ref_dir, **flow_kw)
+                                      flow_path=mv_dir, ref_path=ref_dir, rng=SampleRng(),
+                                      **flow_kw)
             val_ds = CamVidWithFlow(data_path, mode="val", load_pair=True, ref_gap=ref_gap,
                                     flow_path=mv_dir, ref_path=ref_dir, **flow_kw)
         else:
             train_ds = CamVid(data_path, cropsize=cropsize, mode="train", randomscale=randomscale,
-                              load_pair=True, ref_gap=ref_gap, ref_path=ref_dir)
+                              load_pair=True, ref_gap=ref_gap, ref_path=ref_dir, rng=SampleRng())
             val_ds = CamVid(data_path, mode="val", load_pair=True, ref_gap=ref_gap,
                             ref_path=ref_dir)
         val_ds_stage1 = CamVid(data_path, mode="val")
@@ -300,17 +326,17 @@ def train_phase2(data_path, sequence_path, models_path, backend="resnet34", snap
             raise NotImplementedError("cityscapes phase-2 requires motion vectors")
         train_ds = CityScapesWithFlow(data_path, model_type=model_type, cropsize=cropsize,
                                       mode="train", randomscale=randomscale, ref_gap=ref_gap,
-                                      flow_path=mv_dir)
+                                      flow_path=mv_dir, rng=SampleRng())
         val_ds = CityScapesWithFlow(data_path, model_type=model_type, mode="val",
                                     ref_gap=ref_gap, flow_path=mv_dir)
         val_ds_stage1 = CityScapes(data_path, model_type=model_type, mode="val")
     train_loader = Loader(train_ds, batch_size=batch_size, shuffle=True,
                           num_workers=num_workers or policy["train_workers"], drop_last=True,
-                          seed=seed)
-    val_loader = Loader(val_ds, batch_size=1, shuffle=False, num_workers=policy["val_workers"],
-                        drop_last=True)
-    val_loader_stage1 = Loader(val_ds_stage1, batch_size=1, shuffle=False, num_workers=4,
-                               drop_last=True)
+                          seed=seed, group=group)
+    val_loader = Loader(val_ds, batch_size=group.size, shuffle=False,
+                        num_workers=policy["val_workers"], drop_last=False)
+    val_loader_stage1 = Loader(val_ds_stage1, batch_size=group.size, shuffle=False,
+                               num_workers=4, drop_last=False)
 
     kw = dict(atten_type=atten_type, atten_k=atten_k, fuse_version=fuse_version)
     model = build_train_model(model_type, dataset, backend, n_classes, fuse=True, seed=seed, **kw)
@@ -331,25 +357,27 @@ def train_phase2(data_path, sequence_path, models_path, backend="resnet34", snap
         graft_final_conv(model, teacher, fc)
         if not snapshot:
             frozen = (fc,)
-    model = model.to(device, memory_format=torch.channels_last)
+    model = replicate(model.to(device, memory_format=torch.channels_last), group)
     teacher_dev = teacher_copy(teacher, device, compute_dtype)
 
     t_max = t_max_for(epochs, len(train_ds), batch_size)
     optimizer = _optimizer(model, policy, snapshot, start_lr, t_max, frozen)
     start_epoch, max_miou = 0, 0.0
     if resume:
-        start_epoch, max_miou = _resume(resume, model, optimizer, verbose)
+        start_epoch, max_miou = _resume(resume, model, optimizer, verbose, group)
 
     def step_for(stage2):
         loss_fn = build_phase2_loss(model_type, dataset, cropsize, scale, alpha, feat_loss,
                                     stage2, with_motion)
-        return make_train_step(loss_fn, optimizer, bn_mode=bn_mode, accum_steps=accum_steps,
-                               compute_dtype=compute_dtype, device=device)
+        return make_train_step(loss_fn, optimizer, mesh=group, bn_mode=bn_mode,
+                               accum_steps=accum_steps, compute_dtype=compute_dtype,
+                               device=device)
 
     step_stage1, step_stage2 = step_for(False), step_for(True)
-    loop = TrainLoop(device, verbose=verbose)
-    eval_stage2 = EvalAlterRes(scale=scale, ignore_label=255, nanmean=nanmean, device=device)
-    eval_stage1 = EvalConstRes(scale=scale, ignore_label=255, nanmean=nanmean, device=device)
+    loop = TrainLoop(verbose=verbose, mesh=group)
+    verbose = verbose and is_main(group)
+    eval_kw = dict(scale=scale, ignore_label=255, nanmean=nanmean, mesh=group, device=device)
+    eval_stage2, eval_stage1 = EvalAlterRes(**eval_kw), EvalConstRes(**eval_kw)
     generator = dropout_generator(seed, start_epoch, device)
     history = []
     for epoch in range(start_epoch, epochs):
@@ -370,5 +398,5 @@ def train_phase2(data_path, sequence_path, models_path, backend="resnet34", snap
             max_miou = miou
             _save(models_path, backend, scale, epoch, model, optimizer,
                   dict(dataset=dataset, backend=backend, scale=scale, epoch=epoch + 1, miou=miou,
-                       phase=2, stage=2 if stage2 else 1, ref_gap=ref_gap))
+                       phase=2, stage=2 if stage2 else 1, ref_gap=ref_gap), group)
     return model, history

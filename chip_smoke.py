@@ -87,7 +87,38 @@ Phases, in order; any failure exits non-zero:
      then EvalAlterRes validation whose histogram counts every scored
      pixel; a checkpoint saved and loaded into a fresh model and
      optimizer, every tensor bit-equal.
- 12. a JSON line of the kernels, and the last line {"ok": true, ...}.
+ 12. data parallel (arseg_tpu_torch.parallel over torch.distributed): (a)
+     an nccl group of one rank through every data-parallel entry point,
+     each equal to its one-process path (a float32 sync and master stage-2
+     step at 128x160, batch 8: loss and BN statistics bit-equal, each
+     gradient within the larger of 1e-5 relative L2 and 4 x the
+     one-process step's own difference between two calls, since float32
+     atomic adds in the backward run in another order each call; the
+     group built from the device None, "cuda" and "cuda:0" alike on
+     cuda:0; TrainLoop with the group over 2 such batches, its mean loss
+     within 1e-6 relative of the one-process loop's, K1 and K2 once a
+     batch; sharded_step on 2 streams against multi_gop_step,
+     gop_parallel_step against gop_step and both eval engines, bf16 at
+     720x960: maps and histograms bit-equal); (b) two
+     gloo ranks spawned on the same card (NCCL refuses two ranks on one
+     device), each building its group from the device "cuda", the kernels
+     built before the spawn: the sync-BN stage-2 step
+     of camvid-bise18 at 720x960, global batch 16 (8 a rank), bf16, 3 Adam
+     steps (K1 and K2 once a step on each rank; the ranks' losses equal,
+     finite, the last below the first); a float32 sync step at 128x160,
+     global batch 8, against the one-rank step on the card (loss and BN
+     statistics within 1e-4 relative, each gradient within the larger of
+     1e-3 and 4 x its float32 error against the CPU in float64); the master
+     step (every rank left with rank 0's running statistics, which are the
+     one-rank step's on rank 0's rows, within 1e-4); sharded_step on 2
+     streams (1 GOP each, 720x960) against two gop_step calls and
+     gop_parallel_step (11 frames padded to 12) against gop_step, maps
+     agreeing >= 0.9999 in float32 and >= 0.999 in bf16; EvalAlterRes
+     (float32, 4 batches of 2 frames) with a histogram equal to one rank's
+     over the same frames a frame a call (the shape each rank runs); the
+     2-rank and 1-rank step times (two ranks sharing one card measure no
+     scaling). Any rank's failure fails the run.
+ 13. a JSON line of the kernels, and the last line {"ok": true, ...}.
 Every phase prints its seconds.
 """
 
@@ -173,6 +204,18 @@ PARITY_HW, PARITY_BATCH = (128, 160), 2
 # that measured error of the same tensor.
 TRAIN_LOSS_TOL, TRAIN_BN_TOL, TRAIN_GRAD_TOL, GRAD_ERR_FACTOR = 1e-4, 1e-4, 1e-3, 4.0
 TRAIN_EPOCH_BATCHES, TRAIN_EPOCH_BATCH, TRAIN_VAL_BATCHES = 3, 4, 2
+# data parallel: two gloo ranks on the one card
+DP_WORLD, DP_STEPS, DP_PARITY_BATCH, DP_STREAMS, DP_LOOP_BATCHES = 2, 3, 8, 2, 2
+DP_TIMEOUT = 480  # seconds the spawned ranks may take together
+# one-rank group against the one-process step, which is the same code: the
+# backward's float32 atomic adds (bilinear upsampling's, cuDNN's) run in
+# another order from call to call, so each gradient may differ by the
+# larger of this and DP_SPREAD_FACTOR x the one-process step's own
+# difference between two calls
+DP_SAME_GRAD_TOL, DP_SPREAD_FACTOR = 1e-5, 4.0
+# the one-rank TrainLoop's mean loss against the one-process loop's: after
+# the first step the weights differ by those atomic adds' last bits
+DP_LOOP_LOSS_TOL = 1e-6
 
 
 def phase(name):
@@ -1224,13 +1267,15 @@ def _optimizer(student, kind):
     return make_optimizer(kind, cosine_schedule(TRAIN_LR, 1000), params)
 
 
-def _step(opt, stage2, compute_dtype, device, hw):
-    """The trainers' camvid-bise18 phase-2 step of one stage on `device`."""
+def _step(opt, stage2, compute_dtype, device, hw, mesh=None, bn_mode="sync"):
+    """The trainers' camvid-bise18 phase-2 step of one stage on `device`
+    (over a data-parallel group with `mesh`)."""
     from arseg_tpu_torch.train.objectives import build_phase2_loss
     from arseg_tpu_torch.train.step import make_train_step
 
     loss_fn = build_phase2_loss("bisenet", "camvid", (hw[1], hw[0]), SCALE, stage2=stage2)
-    return make_train_step(loss_fn, opt, compute_dtype=compute_dtype, device=device)
+    return make_train_step(loss_fn, opt, mesh=mesh, bn_mode=bn_mode, compute_dtype=compute_dtype,
+                           device=device)
 
 
 def _float_state(opt):
@@ -1313,12 +1358,14 @@ def train_steps_phase(smi):
     del student, teacher, batch
     torch.cuda.empty_cache()
     return {"camvid-bise18 training stage 1": launches[1],
-            "camvid-bise18 training stage 2": launches[2]}
+            "camvid-bise18 training stage 2": launches[2]}, step_ms[2]
 
 
-def _one_step(teacher_cpu, student_cpu, batch, stage2, device, dtype):
+def _one_step(teacher_cpu, student_cpu, batch, stage2, device, dtype, mesh=None,
+              bn_mode="sync"):
     """One SGD step of copies of the models on `device` in `dtype` (float32
-    or float64): (loss, gradients, BN running statistics), on the CPU."""
+    or float64), over `mesh` if given: (loss, gradients, BN running
+    statistics), on the CPU."""
     import copy
 
     from arseg_tpu_torch.train.step import teacher_copy
@@ -1327,7 +1374,7 @@ def _one_step(teacher_cpu, student_cpu, batch, stage2, device, dtype):
     if device == "cuda":
         student = student.to(memory_format=torch.channels_last)
     teacher = teacher_copy(teacher_cpu, device, dtype)
-    step = _step(_optimizer(student, "sgd"), stage2, None, device, PARITY_HW)
+    step = _step(_optimizer(student, "sgd"), stage2, None, device, PARITY_HW, mesh, bn_mode)
     b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     for k in ("image", "ref_image"):
         b[k] = b[k].to(dtype)
@@ -1460,11 +1507,361 @@ def checkpoint_phase():
 def training_phase(smi):
     """The training path: bf16 steps at full width, the card against the
     CPU, the epoch loop with validation, the checkpoint round trip."""
-    launches = train_steps_phase(smi)
+    launches, stage2_ms = train_steps_phase(smi)
     train_parity_phase()
     launches["camvid-bise18 TrainLoop"] = train_loop_phase()
     checkpoint_phase()
+    return launches, stage2_ms
+
+
+def _counted(fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (its result, the launches)."""
+    from arseg_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.LAUNCHES)
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def _stats_delta(a, b):
+    return max(float((a[n] - s).abs().max()) / max(1.0, float(s.abs().max())) for n, s in b.items())
+
+
+def _cuda_batch(batch):
+    return {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+
+def _maps_agree(got, want, dt, name):
+    agree = (got.cpu() == want.cpu()).float().mean().item()
+    print(f"{name} {str(dt)[6:]}: maps agree {agree:.6f} (>= {MULTI_AGREEMENT[dt]}), bit-equal "
+          f"{torch.equal(got.cpu(), want.cpu())}", flush=True)
+    if agree < MULTI_AGREEMENT[dt]:
+        raise SystemExit(f"chip_smoke: {name} in {dt} disagrees with gop_step")
+
+
+def dp_one_rank_phase():
+    """(a) an nccl group of one rank through every data-parallel entry
+    point, each against its one-process path."""
+    import torch.distributed as dist
+
+    from arseg_tpu_torch.eval import EvalAlterRes, EvalConstRes
+    from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.parallel import data_group
+
+    phase("data parallel (a): an nccl group of one rank against the one-process paths")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    launches = {}
+    try:
+        # the device as users give it: none, or "cuda" without an index
+        devices = {d: data_group(device=d).device for d in (None, "cuda", "cuda:0")}
+        print(f"data_group devices {devices}", flush=True)
+        if set(devices.values()) != {torch.device("cuda", 0)}:
+            raise SystemExit(f"chip_smoke: data_group's devices {devices}")
+        group = data_group(device="cuda")
+        teacher_cpu, student_cpu = train_models()
+        batch = train_batch(DP_PARITY_BATCH, PARITY_HW, seed=4)
+        for mode in ("sync", "master"):
+            (got, step_launches) = _counted(lambda: _one_step(
+                teacher_cpu, student_cpu, batch, True, "cuda", torch.float32, group, mode))
+            _add(launches, step_launches)
+            want, again = (_one_step(teacher_cpu, student_cpu, batch, True, "cuda", torch.float32)
+                           for _ in range(2))
+            dgrad = max(_rel(got[1][n], g) for n, g in want[1].items())
+            spread = max(_rel(again[1][n], g) for n, g in want[1].items())
+            over = [(n, d) for n, g in want[1].items() if (d := _rel(got[1][n], g)) > max(
+                DP_SAME_GRAD_TOL, DP_SPREAD_FACTOR * _rel(again[1][n], g))]
+            same = sum(torch.equal(got[1][n], g) for n, g in want[1].items())
+            stats_same = all(torch.equal(got[2][n], t) for n, t in want[2].items())
+            print(f"{mode} step over 1 rank: loss {got[0]:.7f} vs {want[0]:.7f}, BN statistics "
+                  f"bit-equal {stats_same}, gradients bit-equal {same} of {len(want[1])}, largest "
+                  f"rel L2 |d| {dgrad:.3e} against the one-process step's own {spread:.3e} "
+                  f"between two calls; over max({DP_SAME_GRAD_TOL}, {DP_SPREAD_FACTOR} x that): "
+                  f"{over[:4]}", flush=True)
+            if got[0] != want[0] or not stats_same or over:
+                raise SystemExit(f"chip_smoke: the one-rank {mode} step differs from the "
+                                 "one-process step")
+        loop_losses, n = dp_train_loop(teacher_cpu, student_cpu, group)
+        _add(launches, n)
+        hr, lr = make_models()
+        kfs, frs, fxs, fys = (x.cuda() for x in make_clip(DP_STREAMS))
+        pipe = ARPipeline(hr, lr, SCALE, dtype=torch.bfloat16,
+                          normalize=(CAMVID_MEAN, CAMVID_STD), device="cuda")
+        want_streams = pipe.multi_gop_step(kfs, frs, (fxs, fys))
+        want = pipe.gop_step(kfs[:1], frs[0], (fxs[0], fys[0]))
+        got, n = _counted(lambda: pipe.sharded_step(group)(kfs, frs, fxs, fys))
+        _add(launches, n)
+        got2, n = _counted(lambda: pipe.gop_parallel_step(group)(kfs[:1], frs[0],
+                                                                 (fxs[0], fys[0])))
+        _add(launches, n)
+        loader = make_eval_batches(2, EVAL_BATCH, (H, W), seed=7)
+        hists = {}
+        for name, engine, models in (("EvalConstRes", EvalConstRes, (hr,)),
+                                     ("EvalAlterRes", EvalAlterRes, (hr, lr))):
+            one = engine(scale=SCALE, dtype=torch.bfloat16, device="cuda")
+            grouped = engine(scale=SCALE, dtype=torch.bfloat16, mesh=group)
+            hist, n = _counted(lambda: grouped.histogram(*models, loader, N_CLASSES))
+            _add(launches, n)
+            hists[name] = torch.equal(hist, one.histogram(*models, loader, N_CLASSES))
+        same = {"TrainLoop": _rel_scalar(*loop_losses) <= DP_LOOP_LOSS_TOL,
+                "sharded_step": torch.equal(got, want_streams),
+                "gop_parallel_step": torch.equal(got2, want), **hists}
+        print(f"one rank, bf16, 720x960: bit-equal to the one-process path {same}; launches "
+              f"{launches}", flush=True)
+        if not all(same.values()):
+            raise SystemExit("chip_smoke: a one-rank data-parallel path differs from its "
+                             "one-process path")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
     return launches
+
+
+def _rel_scalar(a, b):
+    return abs(a - b) / abs(b)
+
+
+def dp_train_loop(teacher_cpu, student_cpu, group):
+    """TrainLoop with ``mesh=group`` over DP_LOOP_BATCHES float32 stage-2
+    SGD batches at PARITY_HW (the step built with ``mesh=group`` and the
+    device "cuda"), and the one-process TrainLoop over the same batches
+    from the same models. Returns ((its mean loss, the one-process one),
+    its launches)."""
+    import copy
+
+    from arseg_tpu_torch.train.step import teacher_copy
+    from arseg_tpu_torch.train.trainer import TrainLoop
+
+    loader = [train_batch(DP_PARITY_BATCH, PARITY_HW, seed=20 + i)
+              for i in range(DP_LOOP_BATCHES)]
+
+    def run(mesh):
+        student = copy.deepcopy(student_cpu).to("cuda", memory_format=torch.channels_last)
+        teacher = teacher_copy(teacher_cpu, "cuda", torch.float32)
+        step = _step(_optimizer(student, "sgd"), True, None, "cuda", PARITY_HW, mesh)
+        loop = TrainLoop(verbose=False, mesh=mesh) if mesh else TrainLoop("cuda", verbose=False)
+        return loop.run_epoch(step, student, teacher, loader, 0)
+
+    got, launches = _counted(lambda: run(group))
+    want = run(None)
+    expect_launches(launches, {"creff_qkv_fused": DP_LOOP_BATCHES,
+                               "warp_bilinear": DP_LOOP_BATCHES}, "one-rank TrainLoop")
+    print(f"one-rank TrainLoop over {DP_LOOP_BATCHES} float32 batches of {DP_PARITY_BATCH} at "
+          f"{PARITY_HW}: mean loss {got:.9f} against the one-process loop's {want:.9f}, rel |d| "
+          f"{_rel_scalar(got, want):.3e} (<= {DP_LOOP_LOSS_TOL})", flush=True)
+    return (got, want), launches
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_rank(rank, port, out_dir):
+    """One of the DP_WORLD gloo ranks on cuda:0 (data_parallel_phase
+    spawns them): runs every 2-rank check's rank side and saves what it
+    got to out_dir/rank{rank}.pt."""
+    import copy
+
+    import torch.distributed as dist
+
+    from arseg_tpu_torch import set_f32_parity_mode
+    from arseg_tpu_torch.eval import EvalAlterRes
+    from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.parallel import data_group, shard_batch
+    from arseg_tpu_torch.train.step import teacher_copy
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke rank: no CUDA device")
+    torch.cuda.set_device(0)
+    set_f32_parity_mode()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=DP_WORLD, rank=rank)
+    try:
+        group = data_group(device="cuda")  # rank % the one card: cuda:0 for both
+        if group.device != torch.device("cuda", 0):
+            raise SystemExit(f"chip_smoke rank {rank}: data_group gave {group.device}")
+        res = {}
+        teacher_cpu, student_cpu = train_models()
+        # the sync-BN stage-2 step at full width, bf16, global batch TRAIN_BATCH
+        student = copy.deepcopy(student_cpu).to("cuda", memory_format=torch.channels_last)
+        teacher = teacher_copy(teacher_cpu, "cuda", torch.bfloat16)
+        batch = _cuda_batch(shard_batch(train_batch(TRAIN_BATCH, TRAIN_HW, seed=2), group))
+        step = _step(_optimizer(student, "adam"), True, torch.bfloat16, "cuda", TRAIN_HW, group)
+        losses, ms = [], []
+
+        def run_steps():
+            for _ in range(DP_STEPS):
+                metrics, t = _sync_ms(lambda: step(student, teacher, batch))
+                losses.append(float(metrics["loss"]))
+                ms.append(t)
+
+        _, launches = _counted(run_steps)
+        res["bf16"] = dict(losses=losses, ms=ms, launches=launches,
+                           peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del student, teacher, batch
+        torch.cuda.empty_cache()
+        # float32 steps at PARITY_HW, global batch DP_PARITY_BATCH
+        full = train_batch(DP_PARITY_BATCH, PARITY_HW, seed=4)
+        for mode in ("sync", "master"):
+            res[mode] = _one_step(teacher_cpu, student_cpu, shard_batch(full, group), True,
+                                  "cuda", torch.float32, group, mode)
+        # serving: sharded_step and gop_parallel_step, then EvalAlterRes
+        hr, lr = make_models()
+        kfs, frs, fxs, fys = (x.cuda() for x in make_clip(DP_STREAMS))
+        for dt in (torch.float32, torch.bfloat16):
+            pipe = ARPipeline(hr, lr, SCALE, dtype=dt, normalize=(CAMVID_MEAN, CAMVID_STD),
+                              device="cuda")
+            sharded, n1 = _counted(lambda: pipe.sharded_step(group)(kfs, frs, fxs, fys))
+            gop, n2 = _counted(lambda: pipe.gop_parallel_step(group)(kfs[:1], frs[0],
+                                                                     (fxs[0], fys[0])))
+            res[f"serving {dt}"] = dict(sharded=sharded.to(torch.uint8).cpu(),
+                                        gop=gop.to(torch.uint8).cpu(), sharded_launches=n1,
+                                        gop_launches=n2)
+            del pipe
+        loader = make_eval_batches(EVAL_BATCHES, EVAL_BATCH, (H, W), seed=8)
+        hist, launches = _counted(lambda: EvalAlterRes(scale=SCALE, mesh=group).histogram(
+            hr, lr, loader, N_CLASSES))
+        res["eval"] = dict(hist=hist.cpu(), launches=launches)
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_phase(smi, one_rank_ms):
+    """(a) then (b) of the module docstring's phase 12. Returns the launch
+    counts of the data-parallel paths (the spawned ranks' summed)."""
+    import multiprocessing
+    import tempfile
+
+    from arseg_tpu_torch.eval import EvalAlterRes
+    from arseg_tpu_torch.gop import ARPipeline
+
+    paths = {"camvid-bise18 data parallel, one nccl rank": dp_one_rank_phase()}
+    phase(f"data parallel (b): {DP_WORLD} gloo ranks on one card")
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        port = _free_port()
+        procs = [ctx.Process(target=dp_rank, args=(r, port, out_dir)) for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            # the one-process references, computed while the ranks run
+            teacher_cpu, student_cpu = train_models()
+            full = train_batch(DP_PARITY_BATCH, PARITY_HW, seed=4)
+            one = _one_step(teacher_cpu, student_cpu, full, True, "cuda", torch.float32)
+            f64 = _one_step(teacher_cpu, student_cpu, full, True, "cpu", torch.float64)
+            rows0 = {k: v[:DP_PARITY_BATCH // DP_WORLD] for k, v in full.items()}
+            rank0_rows = _one_step(teacher_cpu, student_cpu, rows0, True, "cuda", torch.float32)
+            hr, lr = make_models()
+            kfs, frs, fxs, fys = (x.cuda() for x in make_clip(DP_STREAMS))
+            gop_maps = {}
+            for dt in (torch.float32, torch.bfloat16):
+                pipe = ARPipeline(hr, lr, SCALE, dtype=dt, normalize=(CAMVID_MEAN, CAMVID_STD),
+                                  device="cuda")
+                gop_maps[dt] = torch.stack([pipe.gop_step(kfs[i:i + 1], frs[i], (fxs[i], fys[i]))
+                                            for i in range(DP_STREAMS)]).cpu()
+                del pipe
+            loader = make_eval_batches(EVAL_BATCHES, EVAL_BATCH, (H, W), seed=8)
+            engine = EvalAlterRes(scale=SCALE, device="cuda")
+            per_frame = [{k: v[i:i + 1] for k, v in b.items()} for b in loader
+                         for i in range(EVAL_BATCH)]
+            hist_frames = engine.histogram(hr, lr, per_frame, N_CLASSES).cpu()
+            hist_batches = engine.histogram(hr, lr, loader, N_CLASSES).cpu()
+            torch.cuda.empty_cache()
+            for p in procs:
+                p.join(timeout=max(1.0, DP_TIMEOUT - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        print(f"ranks exited {codes} after {time.perf_counter() - t0:.1f} s", flush=True)
+        if codes != [0] * DP_WORLD:
+            raise SystemExit(f"chip_smoke: a data-parallel rank failed or timed out: {codes}")
+        ranks = [torch.load(f"{out_dir}/rank{r}.pt") for r in range(DP_WORLD)]
+
+    # the bf16 sync-BN step at full width
+    bf16 = [r["bf16"] for r in ranks]
+    for r in bf16:
+        expect_launches(r["launches"], {"creff_qkv_fused": DP_STEPS, "warp_bilinear": DP_STEPS},
+                        "2-rank sync stage-2 step")
+    losses = bf16[0]["losses"]
+    if any(r["losses"] != losses for r in bf16) or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: the 2-rank bf16 steps' losses {[r['losses'] for r in bf16]}")
+    two_rank_ms = float(np.median(bf16[0]["ms"][1:]))
+    print(f"2-rank sync-BN stage-2 step, bf16, global batch {TRAIN_BATCH} ({TRAIN_BATCH // DP_WORLD}"
+          f" a rank), {TRAIN_HW[0]}x{TRAIN_HW[1]}: losses {losses}, median ms per step after the "
+          f"first {two_rank_ms:.3f} (rank 1 {float(np.median(bf16[1]['ms'][1:])):.3f}) against "
+          f"{one_rank_ms:.3f} for one rank at batch {TRAIN_BATCH}; peak memory a rank "
+          f"{bf16[0]['peak']:.3f} GiB; both ranks share one card, so these times measure no "
+          f"scaling; on {smi}", flush=True)
+
+    # the float32 sync step against one rank, and master mode
+    for r in ranks:
+        got = r["sync"]
+        dloss = abs(got[0] - one[0]) / abs(one[0])
+        dstat = _stats_delta(got[2], one[2])
+        over = [(n, d, tol) for n, g in one[1].items()
+                if (d := _rel(got[1][n], g)) > (tol := max(TRAIN_GRAD_TOL,
+                                                           GRAD_ERR_FACTOR * _rel(g, f64[1][n])))]
+        print(f"2-rank float32 sync step at {PARITY_HW}, batch {DP_PARITY_BATCH}, against one "
+              f"rank: loss rel |d| {dloss:.3e} (<= {TRAIN_LOSS_TOL}), BN statistics max |d| "
+              f"{dstat:.3e} (<= {TRAIN_BN_TOL}), gradients over their bound: {over[:4]}",
+              flush=True)
+        if dloss > TRAIN_LOSS_TOL or dstat > TRAIN_BN_TOL or over:
+            raise SystemExit("chip_smoke: the 2-rank sync step disagrees with one rank")
+    master0 = ranks[0]["master"][2]
+    same = all(torch.equal(r["master"][2][n], t) for r in ranks for n, t in master0.items())
+    dstat = _stats_delta(master0, rank0_rows[2])
+    print(f"2-rank master step: every rank holds rank 0's running statistics {same}; against one "
+          f"rank on rank 0's rows max |d| {dstat:.3e} (<= {TRAIN_BN_TOL})", flush=True)
+    if not same or dstat > TRAIN_BN_TOL:
+        raise SystemExit("chip_smoke: the master step did not keep rank 0's statistics")
+
+    # serving and eval
+    launches = {}
+    for r in ranks:
+        _add(launches, r["bf16"]["launches"])
+        for dt in (torch.float32, torch.bfloat16):
+            srv = r[f"serving {dt}"]
+            # a rank's streams run batched: one launch of each kernel
+            expect_launches(srv["sharded_launches"], {"creff_qkv_fused": 1, "warp_bilinear": 1},
+                            "2-rank sharded_step")
+            expect_launches(srv["gop_launches"], {"creff_qkv_fused": 1, "warp_bilinear": 1},
+                            "2-rank gop_parallel_step")
+            _add(_add(launches, srv["sharded_launches"]), srv["gop_launches"])
+            _maps_agree(srv["sharded"].int(), gop_maps[dt], dt, "2-rank sharded_step")
+            _maps_agree(srv["gop"].int(), gop_maps[dt][0], dt, "2-rank gop_parallel_step")
+        expect_launches(r["eval"]["launches"], {"creff_qkv_fused": EVAL_BATCHES,
+                                                "warp_bilinear": EVAL_BATCHES},
+                        "2-rank EvalAlterRes")
+        _add(launches, r["eval"]["launches"])
+        hist = r["eval"]["hist"]
+        print(f"2-rank EvalAlterRes float32: histogram equal to one rank's a frame a call "
+              f"{torch.equal(hist, hist_frames)}, largest cell |d| against one rank's batches "
+              f"of {EVAL_BATCH} {int((hist - hist_batches).abs().max())}", flush=True)
+        if not torch.equal(hist, hist_frames):
+            raise SystemExit("chip_smoke: the 2-rank EvalAlterRes histogram differs from one "
+                             "rank's")
+    print(f"2-rank launches (both ranks) {launches}", flush=True)
+    paths[f"camvid-bise18 data parallel, {DP_WORLD} gloo ranks"] = launches
+    return paths
 
 
 def timed(fn, name):
@@ -1489,8 +1886,10 @@ def main():
              **timed(lambda: cityscapes_phase("cityscapes-psp18"), "cityscapes-psp18 pipeline"),
              **timed(multi_gop_phase, "camvid-bise18 multi-GOP"),
              **timed(lambda: streaming_phase(smi), "camvid-bise18 streaming"),
-             **timed(eval_phase, "eval engines"),
-             **timed(lambda: training_phase(smi), "training")}
+             **timed(eval_phase, "eval engines")}
+    train_launches, stage2_ms = timed(lambda: training_phase(smi), "training")
+    paths.update(train_launches)
+    paths.update(timed(lambda: data_parallel_phase(smi, stage2_ms), "data parallel"))
     kernels = []
     # each kernel in bfloat16 at the shape of the first path that runs it;
     # its other shapes beside it

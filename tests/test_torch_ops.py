@@ -356,3 +356,26 @@ def test_port_imports_without_jax_and_names_no_jax_package():
         assert "arseg_tpu." not in text and "import arseg_tpu\n" not in text, path
         assert "import jax" not in text and "from jax" not in text, path
         assert "import triton" not in text.split("def ", 1)[0], path
+
+
+def test_cached_tables_made_in_inference_mode_serve_autograd():
+    """The device tables of the resize, pool and flow ops are cached per
+    shape; one first made under torch.inference_mode (serving, eval) must
+    still serve a training step of that shape in the same process, which
+    saves it for the backward. (When it was an inference tensor, the
+    training parity tests failed whenever a serving test of their shapes
+    ran before them in one pytest-xdist worker.) Shapes no other test
+    uses, so that this test makes each table first."""
+    x = torch.randn(1, 13, 11, 3, dtype=torch.float64)
+    planes = torch.randn(1, 13, 11, dtype=torch.float64)
+    ops = (lambda t: tresize.adaptive_avg_pool(t, (5, 4)),
+           lambda t: twarp._resize_plane_bilinear(t, (17, 19), True),
+           lambda t: twarp._resize_plane_nearest(t, (7, 6)))
+    inputs = (x, planes, planes)
+    with torch.inference_mode():
+        want = [op(t) for op, t in zip(ops, inputs)]
+    for op, t, w in zip(ops, inputs, want):
+        t = t.clone().requires_grad_(True)
+        y = op(t)
+        y.sum().backward()
+        assert torch.equal(y.detach(), w) and t.grad is not None

@@ -75,7 +75,7 @@ def test_protocol_matches_jax(tree):
 
 
 def test_protocol_refuses_what_is_not_ported(tree):
-    with pytest.raises(NotImplementedError, match="data parallel"):
+    with pytest.raises(TypeError, match="DataGroup"):
         run_protocol(ckpt_root=str(tree / "ckpt"), mesh=object(), device="cpu")
     with pytest.raises(FileNotFoundError):
         find_scale_snapshot(str(tree / "ckpt"), "camvid", "bise18", "AR", 0.25)

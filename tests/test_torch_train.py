@@ -256,12 +256,22 @@ def test_frozen_final_conv(bise18):
 
 
 def test_step_refuses_what_is_not_ported():
+    """What the step refuses, as the JAX step does: a mesh that is not a
+    DataGroup, bn_mode="master" without a mesh, accum_steps > 1 on more
+    than one rank or in master mode, an unknown bn_mode; and the CUDA
+    default without a card."""
+    from arseg_tpu_torch.parallel import DataGroup
+
     loss = build_phase2_loss("bisenet", "camvid", CROP_WH, 0.5)
     opt = O.make_optimizer("sgd", O.cosine_schedule(1e-3, 10), [torch.nn.Parameter(torch.ones(1))])
-    with pytest.raises(NotImplementedError, match="data parallel"):
+    with pytest.raises(TypeError, match="DataGroup"):
         make_train_step(loss, opt, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="data parallel"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step(loss, opt, bn_mode="master", device="cpu")
+    two = DataGroup(None, 0, 2, torch.device("cpu"))
+    for mode in ("sync", "master"):
+        with pytest.raises(ValueError, match="single-device path"):
+            make_train_step(loss, opt, mesh=two, bn_mode=mode, accum_steps=2, device="cpu")
     with pytest.raises(ValueError):
         make_train_step(loss, opt, bn_mode="other", device="cpu")
     if not torch.cuda.is_available():
