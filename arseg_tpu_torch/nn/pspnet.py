@@ -5,7 +5,8 @@
     bilinear upsample (align_corners=False) -> concat with the input -> 1x1
     bottleneck -> relu.
   PSPUpsample: x2 bilinear (align_corners=False) -> 3x3 conv -> BN -> PReLU.
-  PSPNet: dilated ResNet ("arseg") -> PSP -> dropout -> three upsamples ->
+  PSPNet: dilated ResNet ("arseg"), DenseNet-121 or SqueezeNet
+    (``nn/extractors.py``) -> PSP -> dropout -> three upsamples ->
     the 64-ch feature p at input resolution; heads: 1x1 ``final_conv`` ->
     resize to the output size (align_corners=True) -> log_softmax, and a
     classifier on the global-max-pooled layer3 feature.
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 
 from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.attention import get_fusion
+from arseg_tpu_torch.nn.extractors import BACKBONES
 from arseg_tpu_torch.nn.functional import Dropout2d, batch_norm, resize_bilinear_nchw
 from arseg_tpu_torch.nn.resnet import ResNet
 from arseg_tpu_torch.ops import creff_head_kernel, creff_kernel
@@ -90,16 +92,20 @@ class PSPNet(nn.Module):
                  backend="resnet18", input_channel=3, attention_type="local", atten_k=7,
                  fuse_version=0, generator=None):
         super().__init__()
-        if not backend.startswith("resnet"):
-            raise NotImplementedError(
-                f"PSPNet backbone {backend!r} is not ported (ROADMAP Queue A, extractors.py)"
-            )
+        if backend.startswith("resnet"):
+            feats = ResNet(int(backend.replace("resnet", "")), input_channel, variant="arseg")
+        elif backend in BACKBONES:
+            if fuse_version == 3:
+                raise ValueError(f"fuse_version 3 fuses at a ResNet's stem; {backend!r} has none")
+            feats = BACKBONES[backend](input_channel)
+        else:
+            raise ValueError(f"unknown PSPNet backbone {backend!r}")
         self.n_classes = n_classes
         self.fuse_version = fuse_version
         self.attention_type = attention_type
         self.atten_k = atten_k
         self.middle_dim = MIDDLE_DIM[fuse_version]
-        self.feats = ResNet(int(backend.replace("resnet", "")), input_channel, variant="arseg")
+        self.feats = feats
         self.psp = PSPModule(psp_size, 1024, sizes)
         self.drop_1 = Dropout2d(0.3)
         self.up_1 = PSPUpsample(1024, 256)
@@ -136,7 +142,10 @@ class PSPNet(nn.Module):
     # -- shared pieces ------------------------------------------------------
 
     def _backbone(self, x):
-        """(f, class_f, stem): layer4 and layer3 outputs and the stem's."""
+        """(f, class_f, stem): layer4 and layer3 outputs and the stem's; a
+        DenseNet or SqueezeNet gives its two features and no stem."""
+        if not isinstance(self.feats, ResNet):
+            return (*self.feats(x), None)
         stem = self.feats.stem(x)
         class_f = self.feats.layer3(self.feats.layer2(self.feats.layer1(stem)))
         return self.feats.layer4(class_f), class_f, stem

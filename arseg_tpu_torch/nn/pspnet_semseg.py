@@ -2,7 +2,8 @@
 ``arseg_tpu/nn/pspnet_semseg.py``.
 
   layer0: 7x7/s2 conv, BN, relu, 3x3/s2 max pool; layer1-4: the dilated
-    ResNet in the "semseg" style (``nn/resnet.py``).
+    ResNet-18/34/50/101/152 in the "semseg" style (``nn/resnet.py``);
+    ``feat_dim`` is layer4's width (512, or 2048 for the bottleneck ones).
   PPM: adaptive-avg pyramids -> 1x1 conv (no bias) -> BN -> relu ->
     bilinear upsample (align_corners=True) -> concat [x, p1..p4].
   cls: 3x3 conv (no bias) -> BN -> relu -> Dropout2d(0.1) -> 1x1 conv; aux

@@ -71,6 +71,11 @@ FINAL_CONV_PATH = {
 PSP_SIZES = {
     "resnet18": (512, 256),
     "resnet34": (512, 256),
+    "resnet50": (2048, 1024),
+    "resnet101": (2048, 1024),
+    "resnet152": (2048, 1024),
+    "densenet": (1024, 512),
+    "squeezenet": (512, 256),
 }
 
 # batch entries the objectives read
@@ -104,7 +109,9 @@ def build_train_model(model_type, dataset, backend, n_classes, fuse, seed=0, **k
 
 
 def backend_key(model_type, dataset, backend):
-    """The converter's backend name, e.g. "camvid-bise18"."""
+    """The converter's backend name, e.g. "camvid-bise18",
+    "cityscapes-psp50" or "camvid-pspdensenet" (``utils/convert.family``
+    gives its key names)."""
     return f"{dataset}-{'psp' if model_type == 'pspnet' else 'bise'}{backend.replace('resnet', '')}"
 
 

@@ -27,9 +27,11 @@ from arseg_tpu_torch.utils.convert import state_dict_from_jax
 
 
 def save_checkpoint(path, model, optimizer=None, metadata=None):
+    """``model``: an ``nn.Module`` or its state dict."""
     path = os.fspath(path)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    ck = {"state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+    state = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    ck = {"state_dict": {k: v.detach().cpu() for k, v in state.items()},
           "metadata": dict(metadata or {})}
     if optimizer is not None:
         ck["optimizer"] = _to_cpu(optimizer.state_dict())

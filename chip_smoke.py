@@ -118,14 +118,43 @@ Phases, in order; any failure exits non-zero:
      over the same frames a frame a call (the shape each rank runs); the
      2-rank and 1-rank step times (two ranks sharing one card measure no
      scaling). Any rank's failure fails the run.
- 13. a JSON line of the kernels, and the last line {"ok": true, ...}.
+ 13. the command line (arseg_tpu_torch/cli) on a synthetic CamVid tree
+     (tests/synthetic_data.py) at 720x960, GOP 2, 4 samples a split,
+     camvid-bise18: (a) `torchrun --nproc_per_node 1 -m
+     arseg_tpu_torch.cli.train` (phase 1, HR, 1 epoch, bf16, a one-rank
+     nccl group) as a subprocess, then its --resume for epoch 2 in this
+     process ("resuming from", epoch 2 alone); (b) cli.train_pair stage 2
+     with (a)'s checkpoint as the teacher on the device "cuda" (K1 and K2
+     once a step and once a validation batch); (c) two gloo ranks spawned
+     on the card, each with its group initialised, run cli.train_pair
+     --num_devices 2 --bn_mode sync for one epoch (K1 and K2 once a step
+     and a validation batch on each rank; rank 0 alone logs and writes the
+     checkpoint); (d) cli.evaluation --mode 1 1 1 over (a)'s and (b)'s
+     checkpoints in float32 and bfloat16 under a one-rank nccl group
+     (--num_devices 1; K1 and K2 once per AR frame), the float32 files
+     within 1e-6 of the same command on the CPU; (e) cli.convert --to_torch
+     and back, bit-equal. Each leg's seconds.
+ 14. the other PSPNet backbones the trainers accept: one GOP (GOP 12, LR
+     0.5x, bf16, full width) of camvid PSPNet V1 on ResNet-50/101/152,
+     DenseNet-121 and SqueezeNet at 720x960 (K3 and K2 once) and of the
+     cityscapes PSPNetSemseg on ResNet-50 at 1024x2048 (K1 and K2 once),
+     seeded random weights made trained-like (BN statistics from the short
+     GOP's frames, residual branches damped), the median ms/GOP of 3; a
+     short GOP (keyframe + 2 frames, 240x320 or 256x512) on the card in
+     float32 against the CPU (maps agree >= 0.999, fused features within
+     1e-3 of their largest on >= 0.999 of their elements).
+ 15. a JSON line of the kernels, and the last line {"ok": true, ...}.
 Every phase prints its seconds.
 """
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -216,6 +245,21 @@ DP_SAME_GRAD_TOL, DP_SPREAD_FACTOR = 1e-5, 4.0
 # the one-rank TrainLoop's mean loss against the one-process loop's: after
 # the first step the weights differ by those atomic adds' last bits
 DP_LOOP_LOSS_TOL = 1e-6
+REPO = Path(__file__).resolve().parent
+# the command line: a synthetic CamVid tree (tests/synthetic_data.py) at the
+# dataset's 720x960, GOP 2 (few PNGs), CLI_SAMPLES samples in each split,
+# CLI_BATCH crops a rank; camvid-bise18
+CLI_GOP, CLI_SAMPLES, CLI_BATCH, CLI_WORLD = 2, 4, 2, 2
+CLI_TIMEOUT = 300  # seconds the torchrun leg, and the spawned ranks together, may take
+PROTOCOL_TOL = 1e-6  # each number of a result file (tests/test_torch_protocol.py's atol)
+# one GOP of serving on each PSPNet backbone the trainers accept beyond
+# ResNet-18 (full width, 720x960 or 1024x2048), then a short GOP at these
+# sizes on the card in float32 against the CPU
+BACKBONE_CASES = (("camvid", "resnet50"), ("camvid", "resnet101"), ("camvid", "resnet152"),
+                  ("camvid", "densenet"), ("camvid", "squeezenet"), ("cityscapes", "resnet50"))
+BACKBONE_SHORT_HW = {"camvid": (240, 320), "cityscapes": (256, 512)}
+BACKBONE_RUNS = 3  # timed GOPs after the warm-up; their median is printed
+RESIDUAL_GAMMA = 0.3  # a random residual branch's last BN scale (random_trained_like_)
 
 
 def phase(name):
@@ -862,11 +906,18 @@ def head_launches(fused_head):
             "creff_phase2_upsample_argmax": CLIP_GOPS if fused_head else 0}
 
 
-def card_vs_cpu(models, clip, preds_b16, name, norm=(CAMVID_MEAN, CAMVID_STD)):
+def card_vs_cpu(models, clip, preds_b16, name, norm=(CAMVID_MEAN, CAMVID_STD),
+                fused_share=False):
     """One GOP on the card in float32 against the CPU (plain versions) in
     float32: class-map agreement, and the fused features within FUSED_TOL;
     the card's bfloat16 maps of that GOP, `preds_b16`, beside them for
-    information where given."""
+    information where given. fused_share: the fused features need agree
+    within FUSED_TOL on AGREEMENT of their elements only, as the maps do on
+    their pixels: CReFF's softmax over the products of deep nets' features
+    is nearly a hard choice of one window position, and at a near tie its
+    output jumps: on the semseg ResNet-50 the CPU's own float32 fused
+    feature differs from its float64 one by more than FUSED_TOL allows in
+    a few places, though by ~1e-5 in relative L2."""
     from arseg_tpu_torch.gop import ARPipeline
 
     kfs, frs, fxs, fys = clip
@@ -877,15 +928,19 @@ def card_vs_cpu(models, clip, preds_b16, name, norm=(CAMVID_MEAN, CAMVID_STD)):
     t0 = time.perf_counter()
     p_cpu, f_cpu = cpu.gop_step(*args, return_fused=True)
     agree = (p_card.cpu() == p_cpu).float().mean().item()
-    dfused = (f_card.cpu() - f_cpu).abs().max().item()
-    fscale = f_cpu.abs().max().item()
+    diff = (f_card.cpu() - f_cpu).abs()
+    dfused, fscale = diff.max().item(), f_cpu.abs().max().item()
+    tol = FUSED_TOL * max(1.0, fscale)
+    within = (diff <= tol).float().mean().item()
     b16 = ("" if preds_b16 is None else
            f"; card bf16 vs CPU f32 agreement {(preds_b16.cpu() == p_cpu).float().mean().item():.6f}")
     print(f"{name} card f32 vs CPU f32 (one GOP of {frs.shape[1] + 1} frames at "
           f"{tuple(kfs.shape[1:3])}, CPU {time.perf_counter() - t0:.1f} s): class-map agreement "
-          f"{agree:.6f} (>= {AGREEMENT}), fused max|d| {dfused:.3e} (max|fused| {fscale:.3e}){b16}",
-          flush=True)
-    if not agree >= AGREEMENT or not dfused <= FUSED_TOL * max(1.0, fscale):
+          f"{agree:.6f} (>= {AGREEMENT}), fused max|d| {dfused:.3e} (max|fused| {fscale:.3e}), "
+          f"share within {tol:.3e} {within:.6f}"
+          f"{f' (>= {AGREEMENT})' if fused_share else ''}{b16}", flush=True)
+    fused_ok = within >= AGREEMENT if fused_share else dfused <= tol
+    if not agree >= AGREEMENT or not fused_ok:
         raise SystemExit(f"chip_smoke: the card's float32 {name} GOP disagrees with the CPU")
 
 
@@ -1864,6 +1919,318 @@ def data_parallel_phase(smi, one_rank_ms):
     return paths
 
 
+def _captured(main, argv):
+    """main(argv) with its standard output captured, then echoed; returns
+    the output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return buf.getvalue()
+
+
+def _leg(name, smi, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    print(f"-- command line leg {name}: {time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+    return out
+
+
+def cli_rank(rank, port, argv, out_dir):
+    """One of the CLI_WORLD gloo ranks on cuda:0 (cli_phase spawns them),
+    its group initialised before the command runs: ``cli.train_pair`` with
+    ``argv``, its standard output to out_dir/rank{rank}.log and its launch
+    counts to out_dir/rank{rank}.pt."""
+    import torch.distributed as dist
+
+    from arseg_tpu_torch.cli import train_pair
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke rank: no CUDA device")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=CLI_WORLD, rank=rank)
+    try:
+        with open(f"{out_dir}/rank{rank}.log", "w") as log, contextlib.redirect_stdout(log):
+            _, launches = _counted(lambda: train_pair.main(argv))
+        torch.save(launches, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _cli_ranks(argv, out_dir):
+    """cli_rank on CLI_WORLD spawned processes; returns (their logs, their
+    launch counts). Any rank's failure fails the run."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=cli_rank, args=(r, port, argv, out_dir)) for r in range(CLI_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, CLI_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * CLI_WORLD:
+        raise SystemExit(f"chip_smoke: a cli.train_pair rank failed or timed out: {codes}")
+    logs = [Path(f"{out_dir}/rank{r}.log").read_text() for r in range(CLI_WORLD)]
+    return logs, [torch.load(f"{out_dir}/rank{r}.pt") for r in range(CLI_WORLD)]
+
+
+def _result_files(d):
+    return {name: np.loadtxt(os.path.join(d, name)) for name in sorted(os.listdir(d))}
+
+
+def cli_phase(smi):
+    """The offline command line (``arseg_tpu_torch/cli``) on a synthetic
+    CamVid tree at 720x960, camvid-bise18: (a) ``cli.train`` under torchrun
+    (one nccl rank), then its ``--resume`` in this process; (b)
+    ``cli.train_pair`` stage 2 here, with (a)'s checkpoint as the teacher;
+    (c) ``cli.train_pair --num_devices 2 --bn_mode sync`` on two gloo ranks
+    spawned on the card; (d) ``cli.evaluation`` in float32 and bfloat16
+    under a one-rank nccl group, the float32 files against the same command
+    on the CPU; (e) ``cli.convert --to_torch`` and back. Returns the launch
+    counts of (b), (c) and (d)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from arseg_tpu_torch.cli import convert, evaluation, train, train_pair
+    from arseg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from synthetic_data import make_camvid_tree
+
+    phase(f"command line: camvid-bise18 on a synthetic CamVid tree, {H}x{W}, GOP {CLI_GOP}, "
+          f"{CLI_SAMPLES} samples a split")
+    import cv2
+    import PIL
+
+    print(f"the readers' image libraries: PIL {PIL.__version__}, cv2 {cv2.__version__}",
+          flush=True)
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        _leg("tree", smi, lambda: make_camvid_tree(
+            root, gop=CLI_GOP, splits=("train", "val", "test"), h=H, w=W, flow_shape=(H, W, 2),
+            dataset_idxs=[6690 + 30 * i for i in range(CLI_SAMPLES)]))
+        seq = os.path.join(root, "camvid-sequence")
+        data = os.path.join(seq, f"3M-GOP{CLI_GOP}", f"decoded_GOP{CLI_GOP}_dist_1")
+        hr_dir, ar_dir, dp_dir = (os.path.join(root, d) for d in ("hr", "ar", "dp"))
+        hr_args = ["--data-path", data, "--models-path", hr_dir, "--backend", "resnet18",
+                   "--batch-size", str(CLI_BATCH), "--dataset", "camvid", "--model_type",
+                   "bisenet", "--scale", "1.0", "--train_dtype", "bfloat16"]
+
+        def torchrun_train():
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+                   "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+                   "-m", "arseg_tpu_torch.cli.train", *hr_args, "--epochs", "1"]
+            proc = subprocess.run(cmd, cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
+                                  capture_output=True, text=True, timeout=CLI_TIMEOUT)
+            print(proc.stdout[-2000:], end="", flush=True)
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:], flush=True)
+                raise SystemExit(f"chip_smoke: torchrun cli.train exited {proc.returncode}")
+            return proc.stdout
+
+        out = _leg("(a) torchrun --nproc_per_node 1 -m arseg_tpu_torch.cli.train, 1 epoch",
+                   smi, torchrun_train)
+        hr_ckpt = os.path.join(hr_dir, "PSPNet_resnet18_1.0_1_.pth")
+        if "[1] it 0" not in out or not os.path.exists(hr_ckpt):
+            raise SystemExit("chip_smoke: torchrun cli.train logged no step or wrote no "
+                             "checkpoint")
+        out = _leg("(a) cli.train --resume, epoch 2", smi, lambda: _captured(
+            train.main, hr_args + ["--epochs", "2", "--resume", hr_ckpt]))
+        if "resuming from" not in out or "[1] it" in out or "[2] it" not in out:
+            raise SystemExit("chip_smoke: cli.train --resume did not run epoch 2 alone")
+
+        pair_args = ["--data-path", data, "--sequence-path", seq, "--backend", "resnet18",
+                     "--epochs", "1", "--scale", str(SCALE), "--feat_loss", "mse",
+                     "--stage1_epoch", "0", "--ref_gap", str(CLI_GOP), "--with_motion", "1",
+                     "--model_type", "bisenet", "--train_dtype", "bfloat16",
+                     "--teacher_snapshot", hr_ckpt]
+        _, launches = _leg("(b) cli.train_pair stage 2", smi, lambda: _counted(
+            lambda: _captured(train_pair.main, pair_args + [
+                "--models-path", ar_dir, "--batch-size", str(CLI_BATCH), "--device", "cuda"])))
+        # one launch a step and one a validation batch (a frame a batch)
+        want = CLI_SAMPLES // CLI_BATCH + CLI_SAMPLES
+        expect_launches(launches, {"creff_qkv_fused": want, "warp_bilinear": want,
+                                   "creff_phase2_argmax": 0, "creff_attention": 0,
+                                   "creff_phase2_upsample_argmax": 0}, "cli.train_pair")
+        print(f"cli.train_pair launches {launches}", flush=True)
+        paths["camvid-bise18 cli.train_pair"] = launches
+        ar_ckpt = os.path.join(ar_dir, f"PSPNet_resnet18_{SCALE}_1_.pth")
+        if not os.path.exists(ar_ckpt):
+            raise SystemExit("chip_smoke: cli.train_pair wrote no checkpoint")
+
+        dp_argv = pair_args + ["--models-path", dp_dir, "--batch-size",
+                               str(CLI_BATCH * CLI_WORLD), "--num_devices", str(CLI_WORLD),
+                               "--bn_mode", "sync", "--device", "cuda"]
+        logs, rank_launches = _leg(
+            f"(c) cli.train_pair --num_devices {CLI_WORLD} --bn_mode sync, {CLI_WORLD} gloo ranks",
+            smi, lambda: _cli_ranks(dp_argv, root))
+        # one step of the global batch; validation a frame a rank a batch
+        want = CLI_SAMPLES // (CLI_BATCH * CLI_WORLD) + CLI_SAMPLES // CLI_WORLD
+        total = {}
+        for n in rank_launches:
+            expect_launches(n, {"creff_qkv_fused": want, "warp_bilinear": want},
+                            f"cli.train_pair on {CLI_WORLD} ranks")
+            _add(total, n)
+        print(f"rank 0's log:\n{logs[0]}", end="", flush=True)
+        written = os.listdir(dp_dir)
+        if ("[1] it 0" not in logs[0] or "val mIoU" not in logs[0] or "[1] it" in logs[1]
+                or "val mIoU" in logs[1] or written != [f"PSPNet_resnet18_{SCALE}_1_.pth"]):
+            raise SystemExit(f"chip_smoke: rank 0 alone must log and write the checkpoint; "
+                             f"rank 1 logged {logs[1][-500:]!r}, written {written}")
+        print(f"cli.train_pair on {CLI_WORLD} ranks: launches a rank {rank_launches}, rank 0 "
+              f"alone logged and wrote {written}", flush=True)
+        paths[f"camvid-bise18 cli.train_pair, {CLI_WORLD} gloo ranks"] = total
+
+        ckpt_root = os.path.join(root, "ckpt", "camvid-bise18")
+        for mode, src in (("HR", hr_ckpt), ("AR", ar_ckpt), ("LR", ar_ckpt)):
+            os.makedirs(os.path.join(ckpt_root, mode))
+            os.link(src, os.path.join(ckpt_root, mode, os.path.basename(src)))
+        eval_args = ["--data_root", root, "--ckpt_root", os.path.join(root, "ckpt"),
+                     "--dataset", "camvid", "--backbone", "bise18", "--mode", "1", "1", "1",
+                     "--GOP", str(CLI_GOP), "--test_scale", str(SCALE), "--num_devices", "1"]
+        total = {}
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                world_size=1, rank=0)
+        try:
+            for dt in ("float32", "bfloat16"):
+                _, n = _leg(f"(d) cli.evaluation --dtype {dt}, one nccl rank", smi,
+                            lambda: _counted(lambda: _captured(evaluation.main, eval_args + [
+                                "--dtype", dt, "--result_dir", os.path.join(root, f"eval_{dt}"),
+                                "--device", "cuda"])))
+                # AR at distance 1: EvalAlterRes, a frame a batch
+                expect_launches(n, {"creff_qkv_fused": CLI_SAMPLES,
+                                    "warp_bilinear": CLI_SAMPLES}, f"cli.evaluation {dt}")
+                _add(total, n)
+        finally:
+            dist.destroy_process_group()
+        paths["camvid-bise18 cli.evaluation (float32 and bfloat16)"] = total
+        _leg("(d) cli.evaluation --dtype float32 --device cpu", smi, lambda: _captured(
+            evaluation.main, eval_args + ["--dtype", "float32", "--result_dir",
+                                          os.path.join(root, "eval_cpu"), "--device", "cpu"]))
+        card, cpu, b16 = (_result_files(os.path.join(root, f"eval_{d}"))
+                          for d in ("float32", "cpu", "bfloat16"))
+        if not (sorted(card) == sorted(cpu) == sorted(b16) and len(card) == 3):
+            raise SystemExit(f"chip_smoke: cli.evaluation wrote {sorted(card)}, on the CPU "
+                             f"{sorted(cpu)}, in bf16 {sorted(b16)}")
+        diff = max(float(np.abs(card[k] - cpu[k]).max()) for k in card)
+        print(f"cli.evaluation: {sorted(card)}; card f32 against CPU f32 max |d| {diff:.3e} "
+              f"(<= {PROTOCOL_TOL}); bf16 {({k: v.tolist() for k, v in b16.items()})}",
+              flush=True)
+        if not diff <= PROTOCOL_TOL or not all(
+                v.shape == (CLI_GOP + 1,) and np.all((v >= 0) & (v <= 1)) for v in b16.values()):
+            raise SystemExit("chip_smoke: cli.evaluation's files disagree with the CPU or are "
+                             "out of range")
+
+        ref, back = os.path.join(root, "ref.pth"), os.path.join(root, "back.pth")
+
+        def round_trip():
+            _captured(convert.main, [ar_ckpt, ref, "--to_torch", "--backend", "camvid-bise18"])
+            _captured(convert.main, [ref, back, "--backend", "camvid-bise18", "--dataset",
+                                     "camvid", "--scale", str(SCALE)])
+            a, b = (load_checkpoint(f)["state_dict"] for f in (ar_ckpt, back))
+            return sorted(a) == sorted(b) and all(torch.equal(v, b[k]) for k, v in a.items())
+
+        same = _leg("(e) cli.convert --to_torch and back", smi, round_trip)
+        print(f"cli.convert round trip of cli.train_pair's checkpoint bit-equal: {same}",
+              flush=True)
+        if not same:
+            raise SystemExit("chip_smoke: cli.convert's round trip changed the checkpoint")
+    torch.cuda.empty_cache()
+    return paths
+
+
+@torch.no_grad()
+def random_trained_like_(model, x):
+    """A random model given two traits of trained ones, so that float32
+    rounding does not decide its outputs: every BN's running statistics set
+    to those of one train-mode forward of `x` (NCHW, on the CPU), then each
+    residual branch's last BN scale to RESIDUAL_GAMMA. With the init's BN
+    statistics each residual block doubles the variance (ResNet-101's
+    features reach ~1e5, where CReFF's softmax over products of such
+    features turns on rounding); with calibrated statistics alone,
+    ResNet-152's float32 logits on the CPU differ from its float64 ones by
+    ~1e-3 of their largest and its maps by more than AGREEMENT allows, with
+    the damped branches by ~1e-6."""
+    from arseg_tpu_torch.nn.resnet import BasicBlock, Bottleneck
+
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = None  # a cumulative average: this batch's statistics
+    model.train()
+    model(x)
+    for bn in bns:
+        bn.momentum = 0.1
+    for m in model.modules():
+        if isinstance(m, (BasicBlock, Bottleneck)):
+            (m.bn3 if isinstance(m, Bottleneck) else m.bn2).weight.mul_(RESIDUAL_GAMMA)
+    return model.eval()
+
+
+def backbone_phase(smi):
+    """One GOP of AR serving (GOP 12, LR 0.5x, bf16, seeded random weights
+    at full width, made trained-like by `random_trained_like_` on the
+    frames of the short GOP below) on each backbone of BACKBONE_CASES with
+    its launch counts: camvid PSPNet V1 (HR plain) at 720x960 (K3 and K2 once),
+    cityscapes PSPNetSemseg (fused HR and LR, as the registry builds them)
+    at 1024x2048 (K1 and K2 once); the median ms/GOP of BACKBONE_RUNS; then
+    a short GOP at BACKBONE_SHORT_HW on the card in float32 against the
+    CPU."""
+    from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.train.trainer import DATASET_POLICY, build_train_model
+
+    paths = {}
+    for dataset, backend in BACKBONE_CASES:
+        camvid = dataset == "camvid"
+        name = f"{dataset} {'PSPNet V1' if camvid else 'PSPNetSemseg'} {backend}"
+        hw = (H, W) if camvid else CITY_HW
+        phase(f"backbones: {name} AR 0.5x, GOP 12, {hw[0]}x{hw[1]}, bf16")
+        n_classes = DATASET_POLICY[dataset]["n_classes"]
+        norm = (CAMVID_MEAN, CAMVID_STD) if camvid else CITY_NORM["cityscapes-psp18"]
+        short = make_clip(1, frames=2, hw=BACKBONE_SHORT_HW[dataset])
+        frames = torch.cat([short[0], short[1][0]]).permute(0, 3, 1, 2).float() / 255
+        x = (frames - torch.tensor(norm[0]).view(3, 1, 1)) / torch.tensor(norm[1]).view(3, 1, 1)
+        models = []
+        for seed, fuse, scale in ((0, not camvid, 1.0), (1, True, SCALE)):  # HR, LR
+            m = build_train_model("pspnet", dataset, backend, n_classes, fuse=fuse, seed=seed)
+            # the LR frames as the pipeline resizes them
+            xs = F.interpolate(x, scale_factor=scale, mode="bilinear",
+                               align_corners=True) if scale != 1 else x
+            models.append(random_trained_like_(m, xs))
+        pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm,
+                          device="cuda")
+        kfs, frs, fxs, fys = (t.cuda() for t in make_clip(1, hw=hw))
+        args = (kfs, frs[0], (fxs[0], fys[0]))
+        pipe.gop_step(*args)  # warm-up
+        out, launches = _counted(lambda: pipe.gop_step(*args))
+        check_maps_range(out, (GOP, *hw), n_classes, name)
+        expect_launches(launches, {"warp_bilinear": 1, "creff_phase2_argmax": int(camvid),
+                                   "creff_qkv_fused": int(not camvid), "creff_attention": 0,
+                                   "creff_phase2_upsample_argmax": 0}, name)
+        ms = float(np.median([_sync_ms(lambda: pipe.gop_step(*args))[1]
+                              for _ in range(BACKBONE_RUNS)]))
+        print(f"{name}: {ms:.3f} ms/GOP (median of {BACKBONE_RUNS}, {GOP * 1e3 / ms:.1f} "
+              f"frames/s), classes {int(out.min())}..{int(out.max())}, launches {launches}, "
+              f"on {smi}", flush=True)
+        paths[name] = launches
+        del pipe, out, kfs, frs, fxs, fys
+        torch.cuda.empty_cache()
+        card_vs_cpu(models, short, None, name, norm, fused_share=True)
+        torch.cuda.empty_cache()
+    return paths
+
+
 def timed(fn, name):
     t0 = time.perf_counter()
     out = fn()
@@ -1890,6 +2257,8 @@ def main():
     train_launches, stage2_ms = timed(lambda: training_phase(smi), "training")
     paths.update(train_launches)
     paths.update(timed(lambda: data_parallel_phase(smi, stage2_ms), "data parallel"))
+    paths.update(timed(lambda: cli_phase(smi), "command line"))
+    paths.update(timed(lambda: backbone_phase(smi), "backbones"))
     kernels = []
     # each kernel in bfloat16 at the shape of the first path that runs it;
     # its other shapes beside it

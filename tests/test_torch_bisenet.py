@@ -16,7 +16,9 @@ from arseg_tpu_torch import set_f32_parity_mode
 from arseg_tpu_torch.models import build_model, phase2_argmax_head
 from arseg_tpu_torch.utils.convert import state_dict_from_jax
 
-from torch_parity import randomize_bn_tree  # noqa: E402
+from torch_parity import few_threads, randomize_bn_tree  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 set_f32_parity_mode()
 

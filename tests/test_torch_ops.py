@@ -27,6 +27,10 @@ from arseg_tpu_torch.ops import warp as twarp
 from arseg_tpu_torch.ops import local_attention as tla
 from arseg_tpu_torch.ops import creff_kernel, warp_kernel, _build
 
+from torch_parity import few_threads  # noqa: E402,F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 set_f32_parity_mode()
 
 # float32 on both sides; sums in another order than XLA's

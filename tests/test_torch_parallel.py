@@ -34,7 +34,6 @@ weights (BN statistics randomised) loaded into the port, float32:
 """
 
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -63,7 +62,7 @@ from arseg_tpu_torch.utils.checkpoint import save_checkpoint
 from arseg_tpu_torch.utils.convert import state_dict_from_jax
 
 from synthetic_data import FLOW_SHAPE, make_camvid_tree
-from torch_parity import rel_l2
+from torch_parity import free_port, rel_l2
 from train_parity import bounds, make_batch, models_pair
 
 REPO = Path(__file__).resolve().parents[1]
@@ -76,12 +75,6 @@ PROTOCOL_KW = dict(dataset="camvid", backbone="bise18", gop=2, test_scale=0.5, b
 TRAIN_KW = dict(backend="resnet18", batch_size=8, epochs=1, scale=0.5, model_type="bisenet",
                 num_workers=2, verbose=False, cropsize=(64, 48), randomscale=(1.0,),
                 device="cpu")
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _t(x):
@@ -169,7 +162,7 @@ def run(tmp_path_factory):
                   protocol=dict(PROTOCOL_KW, data_root=str(root / "camvid"),
                                 ckpt_root=str(root / "ckpt")))
     torch.save(inputs, root / "inputs.pt")
-    port = _free_port()
+    port = free_port()
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     procs = [subprocess.Popen([sys.executable, str(REPO / "tests" / "_torch_parallel_worker.py"),
                                str(r), str(WORLD), str(port), str(root)], env=env,

@@ -20,7 +20,9 @@ from arseg_tpu_torch.gop.pipeline import _resize_flow_planes
 from arseg_tpu_torch.models import build_model
 from arseg_tpu_torch.utils.convert import state_dict_from_jax
 
-from torch_parity import randomize_bn_tree  # noqa: E402
+from torch_parity import few_threads, randomize_bn_tree  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 set_f32_parity_mode()
 

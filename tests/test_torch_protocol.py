@@ -22,7 +22,9 @@ from arseg_tpu_torch.utils.checkpoint import save_checkpoint
 from arseg_tpu_torch.utils.convert import state_dict_from_jax
 
 from synthetic_data import FLOW_SHAPE, make_camvid_tree
-from torch_parity import randomize_bn_tree
+from torch_parity import few_threads, randomize_bn_tree  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 set_f32_parity_mode()
 

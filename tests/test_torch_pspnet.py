@@ -28,7 +28,9 @@ from arseg_tpu_torch.ops import _build, creff_head_kernel, creff_kernel
 from arseg_tpu_torch.ops import resize as tresize
 from arseg_tpu_torch.utils.convert import state_dict_from_jax
 
-from torch_parity import randomize_bn_tree  # noqa: E402
+from torch_parity import few_threads, randomize_bn_tree  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 set_f32_parity_mode()
 

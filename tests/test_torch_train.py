@@ -36,6 +36,10 @@ from arseg_tpu_torch.utils.convert import state_dict_from_jax
 from synthetic_data import make_camvid_tree
 from train_parity import make_batch, models_pair
 
+from torch_parity import few_threads  # noqa: E402,F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 set_f32_parity_mode()
 
 BACKEND, HW, CROP_WH = "camvid-bise18", (64, 64), (64, 64)

@@ -12,6 +12,10 @@ from arseg_tpu_torch.train.objectives import build_phase2_loss
 
 from train_parity import check_objective, make_batch, models_pair
 
+from torch_parity import few_threads  # noqa: E402,F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 set_f32_parity_mode()
 
 BACKEND, HW, CROP_WH = "camvid-bise18", (64, 64), (64, 64)

@@ -6,6 +6,8 @@ phase-2 stage 2 (merge mode: K2's and K1's plain versions at full
 resolution); the loss and every gradient, BN in train mode at batch 2
 (``train_parity.py``). cityscapes-psp18: test_torch_train_semseg.py."""
 
+import pytest
+
 from arseg_tpu.models import build_model as j_build_model
 from arseg_tpu.train.objectives import build_phase1_loss as j_phase1_loss
 
@@ -16,6 +18,10 @@ from arseg_tpu_torch.utils.convert import state_dict_from_jax
 
 from train_parity import (check_objective, check_stage2, jax_params, make_batch, models_pair,
                           no_dropout)  # noqa: F401 (a fixture)
+
+from torch_parity import few_threads  # noqa: E402,F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 set_f32_parity_mode()
 

@@ -7,6 +7,7 @@ train mode at batch 8: its PPM normalises the 1x1 bin, one value per image
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import arseg_tpu.nn.functional as JFn
@@ -14,6 +15,10 @@ import arseg_tpu.nn.functional as JFn
 from arseg_tpu_torch import set_f32_parity_mode
 
 from train_parity import check_stage2, models_pair, no_dropout  # noqa: F401 (a fixture)
+
+from torch_parity import few_threads  # noqa: E402,F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 set_f32_parity_mode()
 
