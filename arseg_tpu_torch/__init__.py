@@ -19,9 +19,11 @@ both phase-2 stages (``train.trainer.train_phase1`` / ``train_phase2``,
 the step in ``train.step``, bf16 with float32 master weights), over the
 host-side readers of ``data`` and the checkpoints of
 ``utils.checkpoint``; data parallel over ``torch.distributed``
-(``parallel``); the offline command line (``cli``: ``train``,
-``train_pair``, ``evaluation``, ``convert``, run as ``python -m
-arseg_tpu_torch.cli.<name>``). The trainers take every PSPNet backbone the
+(``parallel``); the command line (``cli``: ``train``, ``train_pair``,
+``evaluation``, ``convert`` and ``infer_video``, run as ``python -m
+arseg_tpu_torch.cli.<name>``), video inference over a pinned, side-stream
+GOP feeder (``gop.feeder``) and the native decoder (``gop.video_source``,
+``tools.video``). The trainers take every PSPNet backbone the
 JAX package's do: ResNet-18/34/50/101/152, DenseNet-121 and SqueezeNet
 (``nn/resnet.py``, ``nn/extractors.py``).
 

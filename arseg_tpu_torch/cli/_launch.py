@@ -4,8 +4,9 @@ commands get from ``data_mesh``.
 Under ``torchrun`` (``WORLD_SIZE`` in the environment) with no group yet,
 ``launched`` joins the group torchrun describes, ``nccl`` for a CUDA device
 and ``gloo`` for the CPU, and leaves it when the command ends. A group the
-caller initialised is used as it is. ``--num_devices`` above 1 in a single
-process is an error that says how to launch: no process is spawned here.
+caller initialised is used as it is. ``--num_devices`` (``--gop_devices``
+of ``infer_video``) above 1 in a single process is an error that says how
+to launch: no process is spawned here.
 """
 
 import contextlib
@@ -17,9 +18,10 @@ from arseg_tpu_torch._device import resolve_device
 
 
 @contextlib.contextmanager
-def launched(num_devices, device, command):
+def launched(num_devices, device, command, flag="--num_devices"):
     """Inside the block, the process group of the run is initialised when
-    there is one (module docstring)."""
+    there is one (module docstring). ``flag`` names the option that gave
+    ``num_devices`` in the error."""
     created = False
     if not dist.is_initialized():
         if "WORLD_SIZE" in os.environ:
@@ -28,7 +30,7 @@ def launched(num_devices, device, command):
             created = True
         elif num_devices is not None and num_devices > 1:
             raise SystemExit(
-                f"--num_devices {num_devices} runs one process per device: launch with "
+                f"{flag} {num_devices} runs one process per device: launch with "
                 f"torchrun --nproc_per_node {num_devices} -m arseg_tpu_torch.cli.{command} ...")
     try:
         yield

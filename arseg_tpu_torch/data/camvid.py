@@ -1,9 +1,10 @@
 """CamVid compressed-video datasets (host-side, numpy NHWC outputs) — a
 copy of ``CamVid``, ``CamVidWithFlow`` and their helpers from
-``arseg_tpu/data/camvid.py`` (the port imports nothing of the JAX package).
-PIL and cv2 are imported where a file is opened, never when the module is
-imported. The variants no path of the port runs yet (``CamVidWithBiFlow``,
-``CamVidWithFlowTest``, ``CamVidwithCUmap*``) are not copied.
+``arseg_tpu/data/camvid.py`` (the port imports nothing of the JAX package),
+and ``CamVidWithFlowTest``, the label-free sequence reader of video
+inference (``cli/infer_video.py``). PIL and cv2 are imported where a file
+is opened, never when the module is imported. The variants no path of the
+port runs yet (``CamVidWithBiFlow``, ``CamVidwithCUmap*``) are not copied.
 
 The reference loaders (``dataset/camvid.py``):
 directory crawl (sorted os.walk), the annotated-frame <-> encoded-sequence
@@ -274,4 +275,44 @@ class CamVidWithFlow(CamVid):
             "flow": np.ascontiguousarray(flow, dtype=np.float32),
         }
         sample["existence"] = label_existence(sample["label"], CAMVID_CLASSES)
+        return sample
+
+
+class CamVidWithFlowTest:
+    """Label-free loader over a decoded sequence (`dataset/camvid.py:1153-1426`):
+    frames named `%05d.png`, keyframe = `idx // ref_gap * ref_gap`, flow from
+    `<flow_path>/<name>.bin`. Used to run AR inference over full videos."""
+
+    def __init__(self, data_path, load_pair=True, ref_gap=12, ref_path=None,
+                 flow_path=None, flow_shape=FLOW_SHAPE):
+        self.data = get_files(data_path)
+        self.load_pair = load_pair
+        self.ref_gap = ref_gap
+        self.ref_path = ref_path
+        self.flow_path = flow_path
+        self.flow_shape = flow_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, index):
+        data_path = self.data[index]
+        img = open_rgb(data_path)
+        sample = {
+            "image": T.normalize(img, CAMVID_MEAN, CAMVID_STD),
+            "label": np.int32(0),
+            "existence": np.float32(0),
+        }
+        if self.load_pair:
+            idx = int(os.path.basename(data_path)[:-4])
+            key_idx = idx // self.ref_gap * self.ref_gap
+            ref_img = open_rgb(os.path.join(self.ref_path, f"{key_idx:05d}.png"))
+            flow = read_flow_bin(
+                os.path.join(
+                    self.flow_path, os.path.basename(data_path)[:-4] + ".bin"
+                ),
+                self.flow_shape,
+            )
+            sample["ref_image"] = T.normalize(ref_img, CAMVID_MEAN, CAMVID_STD)
+            sample["flow"] = np.ascontiguousarray(flow, dtype=np.float32)
         return sample

@@ -5,10 +5,20 @@ the device stage of the training loop.
 The loader overlaps PIL/cv2 decode with device compute through a thread
 pool and a bounded prefetch queue, and yields batches of numpy arrays in a
 fixed order for a seed. Threads (not processes) suffice because decode is
-PIL/cv2/numpy-bound and releases the GIL. ``device_prefetch`` copies each
-batch to the device from pinned host memory with ``non_blocking=True``,
-two batches ahead of the consumer, so the copies overlap the steps before
-them.
+PIL/cv2/numpy-bound and releases the GIL. With ``pin_memory=True`` (a CUDA
+device only) the workers stack each batch straight into pinned host
+tensors.
+
+``device_prefetch`` is the port's one way of staging host batches on the
+card ahead of compute (training, the eval engines, ``gop/feeder.py``):
+each batch's copies are issued with ``non_blocking=True`` from pinned
+memory on a side CUDA stream, ``size`` batches ahead; the consumer's
+stream waits on the copies' event before it reads them, so the copy of
+batch k+1 runs beside the compute of batch k. It is issued from the
+consumer's thread because the current stream is per thread. The staged
+tensors are allocated on the side stream and read on the consumer's, so
+each is ``record_stream``'d onto it: without that the caching allocator
+could hand a block out again while the compute still reads it.
 
 Data parallel (``group``, a ``parallel.DataGroup`` of n ranks): every
 rank draws the same order from the same seed, and rank r yields rows
@@ -31,10 +41,24 @@ import torch
 from arseg_tpu_torch.data.transform import SampleRng
 
 
-def _stack(samples):
+def pinned(shape, dtype):
+    """An uninitialised pinned host tensor of numpy ``dtype`` and its numpy
+    view, to fill. It comes from PyTorch's caching host allocator, which
+    hands a block out again only after the copies recorded on it have run,
+    so a producer may allocate one per batch."""
+    t = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype, pin_memory=True)
+    return t, t.numpy()
+
+
+def _stack(samples, pin=False):
     out = {}
     for k in samples[0]:
-        out[k] = np.stack([s[k] for s in samples])
+        parts = [np.asarray(s[k]) for s in samples]
+        if pin:
+            out[k], view = pinned((len(parts), *parts[0].shape), parts[0].dtype)
+            np.stack(parts, out=view)
+        else:
+            out[k] = np.stack(parts)
     return out
 
 
@@ -49,6 +73,7 @@ class Loader:
         seed=None,
         prefetch=4,
         group=None,
+        pin_memory=False,
     ):
         if group is not None and group.size > 1:
             if batch_size % group.size or not drop_last or seed is None:
@@ -63,6 +88,7 @@ class Loader:
         self.drop_last = drop_last
         self.rng = random.Random(seed)
         self.prefetch = prefetch
+        self.pin_memory = pin_memory
 
     def __len__(self):
         n = len(self.dataset)
@@ -121,7 +147,8 @@ class Loader:
                 if stop.is_set():
                     return
                 try:
-                    batch = _stack([read(place, i) for place, i in batches[bi]])
+                    batch = _stack([read(place, i) for place, i in batches[bi]],
+                                   self.pin_memory)
                 except Exception as e:  # surface in consumer
                     batch = e
                 with results_lock:
@@ -162,33 +189,85 @@ class Loader:
                 results_lock.notify_all()  # release workers in the bound-wait
 
 
+def _is_array(v):
+    return isinstance(v, np.ndarray) or torch.is_tensor(v)
+
+
+def _map(fn, batch):
+    """fn over the values of a dict or a tuple."""
+    if isinstance(batch, dict):
+        return {k: fn(v) for k, v in batch.items()}
+    return tuple(fn(v) for v in batch)
+
+
+def _host(v):
+    """A host array as a pinned tensor (copied into one unless it is one)."""
+    if torch.is_tensor(v) and v.is_pinned():
+        return v
+    v = np.asarray(v)
+    t, view = pinned(v.shape, v.dtype)
+    view[...] = v
+    return t
+
+
+def _stage(batch, device, stream):
+    """Start the copies of a batch's arrays to ``device`` on ``stream``:
+    (the batch on the device, the copies' event). A list of arrays is
+    stacked on the device along a new first axis, each row copied into its
+    place; other values pass unchanged."""
+
+    def one(v):
+        if isinstance(v, list):
+            rows = [_host(x) for x in v]
+            dst = torch.empty((len(rows), *rows[0].shape), dtype=rows[0].dtype, device=device)
+            for b, src in enumerate(rows):
+                dst[b].copy_(src, non_blocking=True)
+            return dst
+        return _host(v).to(device, non_blocking=True) if _is_array(v) else v
+
+    with torch.cuda.stream(stream):
+        out = _map(one, batch)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return out, event
+
+
+def _on_cpu(v):
+    if isinstance(v, list):
+        return torch.stack([torch.as_tensor(x) for x in v])
+    return torch.as_tensor(v) if _is_array(v) else v
+
+
 def device_prefetch(iterator, device, size=2):
-    """Batches (dicts of arrays) from ``iterator`` as dicts of tensors on
-    ``device``, each copy started ``size`` batches before the consumer
-    takes it. On a CUDA device each array is copied into pinned memory and
-    from there with ``non_blocking=True`` (PyTorch's pinned-memory pool
-    keeps the host buffer until its copy has run); on the CPU the arrays are
-    wrapped without a copy."""
+    """Batches (dicts or tuples of host arrays) from ``iterator`` as the same
+    containers of tensors on ``device``, each staged ``size`` batches before
+    the consumer takes it (module docstring). A list of arrays becomes one
+    tensor stacked along a new first axis; other values pass unchanged.
+
+    On a CUDA device the copies come from pinned memory: a pinned tensor
+    (``Loader(pin_memory=True)``, ``pinned``) is copied as it is, any other
+    array is first copied into a pinned tensor on the caller's thread. On
+    the CPU the arrays are wrapped without a copy."""
     device = torch.device(device)
-
-    def put(batch):
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(v)
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
-            out[k] = t
-        return out
-
-    buf = collections.deque()
     it = iter(iterator)
+    if device.type != "cuda":
+        for batch in it:
+            yield _map(_on_cpu, batch)
+        return
+    side = torch.cuda.Stream(device=device)
+    buf = collections.deque()
     for batch in it:
-        buf.append(put(batch))
+        buf.append(_stage(batch, device, side))
         if len(buf) == size:
             break
     while buf:
-        out = buf.popleft()
+        out, event = buf.popleft()
         for batch in it:
-            buf.append(put(batch))
+            buf.append(_stage(batch, device, side))
             break
+        compute = torch.cuda.current_stream(device)
+        compute.wait_event(event)
+        for v in (out.values() if isinstance(out, dict) else out):
+            if torch.is_tensor(v):
+                v.record_stream(compute)
         yield out

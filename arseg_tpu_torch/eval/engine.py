@@ -33,14 +33,23 @@ rows zero frames and flows with the ignore label (``engine.py:199-201`` of
 the JAX package), and each rank runs its contiguous rows and counts them
 into its int64 histogram; ``histogram`` returns the ranks' sum
 (``parallel.psum_hist``), the same on every rank. ``predictions`` yields
-this rank's rows. The JAX ``prefetch`` (a host stage that stages batches on
-the device ahead) is not ported.
+this rank's rows.
+
+``prefetch`` (default 2, as in the JAX engines, ``engine.py:165-181``):
+batches reach the device through ``data/loader.device_prefetch``, the
+port's one staging helper: each batch's copies are issued from pinned
+memory on a side stream that many batches ahead and the compute stream
+waits on their event, so the copy of batch k+1 runs beside the compute of
+batch k (a ``Loader(pin_memory=True)`` stacks its batches straight into
+pinned memory; other arrays are pinned on this thread first); 0 takes
+each batch as the loader gives it. The histograms do not depend on it.
 """
 
 import torch
 import torch.nn.functional as F
 
 from arseg_tpu_torch._device import resolve_device
+from arseg_tpu_torch.data.loader import device_prefetch
 from arseg_tpu_torch.eval.metrics import confusion_update, miou_from_hist
 from arseg_tpu_torch.gop.pipeline import ARPipeline, device_frames, place_model
 from arseg_tpu_torch.ops.warp import scale_and_resize_flow
@@ -53,8 +62,9 @@ def _resize(x, hw):
 
 class _Engine:
     def __init__(self, scale=0.5, ignore_label=255, nanmean=False, mesh=None, dtype=None,
-                 device=None):
+                 device=None, prefetch=2):
         self.scale = scale
+        self.prefetch = prefetch
         self.ignore_label = ignore_label
         self.nanmean = nanmean
         self.mesh = check_group(mesh)
@@ -63,10 +73,14 @@ class _Engine:
                                      else mesh.device)
 
     def _batches(self, loader):
-        """The loader's batches, each cut to this rank's rows under a mesh."""
+        """The loader's batches, each cut to this rank's rows under a mesh,
+        staged on the device ``prefetch`` batches ahead (module docstring)."""
         n = 1 if self.mesh is None else self.mesh.size
-        for batch in loader:
-            yield shard_batch(pad_rows(batch, n, {"label": self.ignore_label}), self.mesh)
+        batches = (shard_batch(pad_rows(batch, n, {"label": self.ignore_label}), self.mesh)
+                   for batch in loader)
+        if self.prefetch <= 0:
+            return batches
+        return device_prefetch(batches, self.device, size=self.prefetch)
 
     def _label(self, batch):
         return torch.as_tensor(batch["label"], device=self.device)

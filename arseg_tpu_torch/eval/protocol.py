@@ -123,7 +123,7 @@ def run_protocol(dataset="camvid", backbone="psp18", mode=(1, 1, 1), gop=12, tes
         # the ragged last batch is kept: every sample counts, as in the
         # reference's batch-1 loop
         return Loader(ds, batch_size=batch_size, shuffle=False, num_workers=num_workers,
-                      drop_last=False)
+                      drop_last=False, pin_memory=device.type == "cuda")
 
     def hr_miou(ref_gap):
         data_path = _seq_paths(data_root, dataset, bitrate, gop, ref_gap)[0]

@@ -231,9 +231,10 @@ def train_phase1(data_path, models_path, backend="resnet34", snapshot=None, batc
         val_ds = CityScapes(data_path, model_type=model_type, mode="val")
     train_loader = Loader(train_ds, batch_size=batch_size, shuffle=True,
                           num_workers=num_workers or policy["train_workers"], drop_last=True,
-                          seed=seed, group=group)
+                          seed=seed, group=group, pin_memory=device.type == "cuda")
     val_loader = Loader(val_ds, batch_size=group.size, shuffle=False,
-                        num_workers=policy["val_workers"], drop_last=False)
+                        num_workers=policy["val_workers"], drop_last=False,
+                        pin_memory=device.type == "cuda")
 
     model = build_train_model(model_type, dataset, backend, n_classes, fuse=False, seed=seed)
     if snapshot:
@@ -339,11 +340,13 @@ def train_phase2(data_path, sequence_path, models_path, backend="resnet34", snap
         val_ds_stage1 = CityScapes(data_path, model_type=model_type, mode="val")
     train_loader = Loader(train_ds, batch_size=batch_size, shuffle=True,
                           num_workers=num_workers or policy["train_workers"], drop_last=True,
-                          seed=seed, group=group)
+                          seed=seed, group=group, pin_memory=device.type == "cuda")
     val_loader = Loader(val_ds, batch_size=group.size, shuffle=False,
-                        num_workers=policy["val_workers"], drop_last=False)
+                        num_workers=policy["val_workers"], drop_last=False,
+                        pin_memory=device.type == "cuda")
     val_loader_stage1 = Loader(val_ds_stage1, batch_size=group.size, shuffle=False,
-                               num_workers=4, drop_last=False)
+                               num_workers=4, drop_last=False,
+                               pin_memory=device.type == "cuda")
 
     kw = dict(atten_type=atten_type, atten_k=atten_k, fuse_version=fuse_version)
     model = build_train_model(model_type, dataset, backend, n_classes, fuse=True, seed=seed, **kw)

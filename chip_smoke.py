@@ -143,7 +143,26 @@ Phases, in order; any failure exits non-zero:
      short GOP (keyframe + 2 frames, 240x320 or 256x512) on the card in
      float32 against the CPU (maps agree >= 0.999, fused features within
      1e-3 of their largest on >= 0.999 of their elements).
- 15. a JSON line of the kernels, and the last line {"ok": true, ...}.
+ 15. video inference through arseg_tpu_torch.cli.infer_video (720x960, GOP
+     12, 0.5x, bf16, seeded random weights saved as the port's .pth): (a)
+     file-fed over a synthetic decoded sequence of 3 GOPs (PNG frames
+     panning 2 px a frame, int16 merged-MV bins), camvid-bise18 and the
+     default camvid-psp18 V1: the PNGs bit-equal to gop_step over the same
+     GOPs in this process, K1 (or K3) and K2 once a GOP; --prefetch 0 and 2
+     bit-equal over 8 GOPs, with StepTimer's p50/p95 ms per GOP and
+     frames/s of each, beside gop_step alone (wall ms/GOP, and its device
+     kernels' ms/GOP from torch.profiler); --gop_batch 2 (a stack and the
+     tail) against --gop_batch 1, maps >= 0.999 in bf16 and bit-equal in
+     float32; --colorize PNGs equal index_to_rgb of the maps; --stats_json
+     holds every StepTimer key; (b) --video with --mv_carrier and with
+     --mv_analysis, bit-equal to the file-fed command over the same
+     streams' decoded frames and merged MVs, when the native decoder
+     (native/, FFmpeg) builds, else a line "video leg: not run: <why>";
+     (c) two gloo ranks on the card: --streams over 2 file-fed streams with
+     --num_devices 2 (each stream bit-equal to it served alone) and
+     --gop_devices 2 (maps >= 0.999 of the one-card run's); (d)
+     EvalAlterRes's histogram with prefetch 2 equal to prefetch 0.
+ 16. a JSON line of the kernels, and the last line {"ok": true, ...}.
 Every phase prints its seconds.
 """
 
@@ -260,6 +279,12 @@ BACKBONE_CASES = (("camvid", "resnet50"), ("camvid", "resnet101"), ("camvid", "r
 BACKBONE_SHORT_HW = {"camvid": (240, 320), "cityscapes": (256, 512)}
 BACKBONE_RUNS = 3  # timed GOPs after the warm-up; their median is printed
 RESIDUAL_GAMMA = 0.3  # a random residual branch's last BN scale (random_trained_like_)
+# video inference: a synthetic decoded sequence of VIDEO_GOPS GOPs at 720x960
+# panning VIDEO_PAN px a frame; the timing runs read VIDEO_TIMING_GOPS GOPs of
+# it through symlinks (GOP k is GOP k mod VIDEO_GOPS), so that StepTimer
+# times several steps after its first
+VIDEO_GOPS, VIDEO_PAN, VIDEO_TIMING_GOPS = 3, 2, 8
+EVAL_TIMING_BATCHES = 8  # pinned 720x960 batches for the eval engines' prefetch timing
 
 
 def phase(name):
@@ -1958,14 +1983,16 @@ def cli_rank(rank, port, argv, out_dir):
         dist.destroy_process_group()
 
 
-def _cli_ranks(argv, out_dir):
-    """cli_rank on CLI_WORLD spawned processes; returns (their logs, their
-    launch counts). Any rank's failure fails the run."""
+def _cli_ranks(argv, out_dir, target=None, name="cli.train_pair"):
+    """``target`` (cli_rank when None) on CLI_WORLD spawned processes;
+    returns (their logs, their launch counts). Any rank's failure fails the
+    run."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     port = _free_port()
-    procs = [ctx.Process(target=cli_rank, args=(r, port, argv, out_dir)) for r in range(CLI_WORLD)]
+    procs = [ctx.Process(target=target or cli_rank, args=(r, port, argv, out_dir))
+             for r in range(CLI_WORLD)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
@@ -1979,7 +2006,7 @@ def _cli_ranks(argv, out_dir):
                 p.join()
     codes = [p.exitcode for p in procs]
     if codes != [0] * CLI_WORLD:
-        raise SystemExit(f"chip_smoke: a cli.train_pair rank failed or timed out: {codes}")
+        raise SystemExit(f"chip_smoke: a {name} rank failed or timed out: {codes}")
     logs = [Path(f"{out_dir}/rank{r}.log").read_text() for r in range(CLI_WORLD)]
     return logs, [torch.load(f"{out_dir}/rank{r}.pt") for r in range(CLI_WORLD)]
 
@@ -2231,6 +2258,484 @@ def backbone_phase(smi):
     return paths
 
 
+def video_sequence(root, gops, seed=0):
+    """gops*GOP frames %05d.png (720x960) of a smoothed random canvas panning
+    VIDEO_PAN px a frame under root/decoded, and their merged MVs under
+    root/mv: int16 quarter-pel [H, W, 2], each frame's displacement to its
+    GOP's keyframe (4 * VIDEO_PAN * d along x at d frames from it) with a
+    seeded jitter of +-2 on 8x8 blocks. Returns (frames dir, MV dir, the
+    frames' paths)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    n = gops * GOP
+    canvas = rng.randint(0, 256, (H, W + VIDEO_PAN * n, 3)).astype(np.int32)
+    canvas = ((canvas + np.roll(canvas, 1, 0) + np.roll(canvas, 1, 1)) // 3).astype(np.uint8)
+    data, flows = os.path.join(root, "decoded"), os.path.join(root, "mv")
+    os.makedirs(data)
+    os.makedirs(flows)
+    paths = []
+    for i in range(n):
+        paths.append(os.path.join(data, f"{i:05d}.png"))
+        Image.fromarray(canvas[:, VIDEO_PAN * i:VIDEO_PAN * i + W]).save(paths[-1],
+                                                                        compress_level=1)
+        d = i % GOP
+        mv = np.zeros((H, W, 2), np.int16)
+        if d:
+            mv[..., 0] = 4 * VIDEO_PAN * d
+            mv += rng.randint(-2, 3, (H // 8, W // 8, 2)).repeat(8, 0).repeat(8, 1).astype(
+                np.int16)
+        mv.tofile(os.path.join(flows, f"{i:05d}.bin"))
+    return data, flows, paths
+
+
+def linked_sequence(data, flows, root, gops, shift=0):
+    """A sequence of gops GOPs under root whose GOP k is GOP (k + shift) mod
+    n of (data, flows), n its GOP count, through symlinks."""
+    n = len(os.listdir(data)) // GOP
+    out = (os.path.join(root, "decoded"), os.path.join(root, "mv"))
+    for d in out:
+        os.makedirs(d)
+    for i in range(gops * GOP):
+        j = ((i // GOP + shift) % n) * GOP + i % GOP
+        os.symlink(os.path.join(data, f"{j:05d}.png"), os.path.join(out[0], f"{i:05d}.png"))
+        os.symlink(os.path.join(flows, f"{j:05d}.bin"), os.path.join(out[1], f"{i:05d}.bin"))
+    return out
+
+
+def _pngs(out_dir, n):
+    from PIL import Image
+
+    names = sorted(os.listdir(out_dir))
+    if names != [f"{i:05d}.png" for i in range(n)]:
+        raise SystemExit(f"chip_smoke: cli.infer_video wrote {names[:4]}... ({len(names)} "
+                         f"files) to {out_dir}, expected {n} maps")
+    return np.stack([np.asarray(Image.open(os.path.join(out_dir, x))) for x in names])
+
+
+def _cli_pipeline(backend, ckpt, dtype):
+    """The pipeline cli.infer_video builds: the registry's models loaded from
+    the checkpoints, on the card in dtype."""
+    from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.models import build_model
+    from arseg_tpu_torch.utils.checkpoint import load_weights
+
+    models = []
+    for fuse, path in ((False, ckpt[0]), (True, ckpt[1])):
+        models.append(build_model(backend, fuse=fuse, device="cpu"))
+        load_weights(models[-1], path, backend)
+    return ARPipeline(*models, scale=SCALE, dtype=dtype, normalize=(CAMVID_MEAN, CAMVID_STD),
+                      device="cuda")
+
+
+def video_gops(data, flows, n_gops):
+    """The sequence's GOPs on the card, read straight from its files as the
+    command's input layout defines them, without the port's readers or
+    feeder: each frame's PNG decoded by PIL and normalised, (x/255 - mean) /
+    std in float32; the keyframe is the GOP's first frame; each other
+    frame's merged-MV bin (int16 quarter-pel [H, W, 2]) is split into its x
+    and y planes of pixels. [(keyframe [1,H,W,3], frames [GOP-1,H,W,3],
+    fx, fy)]."""
+    from PIL import Image
+
+    mean, std = np.float32(CAMVID_MEAN), np.float32(CAMVID_STD)
+    gops = []
+    for k in range(n_gops):
+        idx = range(k * GOP, (k + 1) * GOP)
+        imgs = np.stack([np.asarray(Image.open(os.path.join(data, f"{i:05d}.png")).convert(
+            "RGB"), np.float32) for i in idx])
+        imgs = (imgs / np.float32(255) - mean) / std
+        mv = np.stack([np.fromfile(os.path.join(flows, f"{i:05d}.bin"), np.int16).reshape(
+            H, W, 2) for i in idx[1:]]).astype(np.float32) / np.float32(4)
+        gops.append(tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                          for a in (imgs[:1], imgs[1:], mv[..., 0], mv[..., 1])))
+    return gops
+
+
+def video_reference(backend, ckpt, data, flows, dtype):
+    """gop_step over the sequence's GOPs in this process (``video_gops``,
+    host-normalised float32, as the file-fed command ships them): the uint8
+    maps [n, H, W], and gop_step alone on GOPs already on the card: its
+    wall ms/GOP (host clock around synchronised GOPs) and its device
+    kernels' ms/GOP (torch.profiler, as tools_torch_profile_gop.py counts
+    them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = _cli_pipeline(backend, ckpt, dtype)
+    gops = video_gops(data, flows, VIDEO_GOPS)
+
+    def clip():
+        return [pipe.gop_step(kf, fr, (fx, fy)) for kf, fr, fx, fy in gops]
+
+    maps = torch.cat(clip()).to(torch.uint8).cpu().numpy()  # also the warm-up
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clip()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / len(gops))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        clip()
+        torch.cuda.synchronize()
+    busy = _device_ms(prof)[0] / len(gops)
+    del pipe, gops
+    torch.cuda.empty_cache()
+    return maps, float(np.median(walls)), busy
+
+
+def _device_ms(prof):
+    """(kernels, copies and memsets): the card's ms in a torch.profiler
+    run, the record_function spans left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = copies = 0.0
+    for e in prof.key_averages():
+        if e.device_type != cuda or e.key.startswith("gop."):
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.self_device_time_total / 1e3
+        else:
+            kernels += e.self_device_time_total / 1e3
+    return kernels, copies
+
+
+def _traced_infer(argv, log_dir):
+    """cli.infer_video with argv under ``utils/profiling.trace`` (the Chrome
+    trace to log_dir): (the launches, its kernels' and its copies' device
+    ms over the whole run)."""
+    from arseg_tpu_torch.utils.profiling import trace
+
+    with trace(log_dir) as prof:
+        _, launches = _infer(argv)
+    return launches, *_device_ms(prof)
+
+
+def _infer(argv):
+    """cli.infer_video on the card with argv, its launches counted: (its
+    output, the launches)."""
+    from arseg_tpu_torch.cli import infer_video
+
+    return _counted(lambda: _captured(infer_video.main, argv + ["--device", "cuda"]))
+
+
+def _stats(path):
+    with open(path) as f:
+        s = json.load(f)
+    want = sorted(["frames_per_sec", "max_ms", "mean_ms", "min_ms", "p50_ms", "p95_ms", "steps",
+                   "loop_frames_per_sec", "loop_ms_per_step", "loop_s", "loop_steps",
+                   "loop_feed_wait_s", "loop_write_wait_s"])
+    if sorted(s) != want:
+        raise SystemExit(f"chip_smoke: --stats_json holds {sorted(s)}, expected {want}")
+    return s
+
+
+def _path_launches(backend, n):
+    """Launches of n GOP steps of backend's default path: K1 (bise18) or K3
+    (psp18 V1), and K2, once a step."""
+    head = "creff_qkv_fused" if "bise" in backend else "creff_phase2_argmax"
+    other = "creff_phase2_argmax" if "bise" in backend else "creff_qkv_fused"
+    return {head: n, "warp_bilinear": n, other: 0, "creff_attention": 0,
+            "creff_phase2_upsample_argmax": 0}
+
+
+def video_rank(rank, port, jobs, out_dir):
+    """One of the CLI_WORLD gloo ranks on cuda:0 (video_phase spawns them),
+    its group initialised before the commands run: cli.infer_video with each
+    argv of ``jobs``, its standard output to out_dir/rank{rank}.log and its
+    launch counts, a dict per job, to out_dir/rank{rank}.pt."""
+    import torch.distributed as dist
+
+    from arseg_tpu_torch.cli import infer_video
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke rank: no CUDA device")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=CLI_WORLD, rank=rank)
+    try:
+        launches = []
+        with open(f"{out_dir}/rank{rank}.log", "w") as log, contextlib.redirect_stdout(log):
+            for argv in jobs:
+                launches.append(_counted(lambda: infer_video.main(argv))[1])
+        torch.save(launches, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _agree(got, want, bound, name):
+    agree = float(np.mean(got == want))
+    print(f"{name}: maps agree {agree:.6f} (>= {bound}), bit-equal {np.array_equal(got, want)}",
+          flush=True)
+    if not agree >= bound:
+        raise SystemExit(f"chip_smoke: {name} disagrees")
+
+
+def _bit_equal(got, want, name):
+    same = np.array_equal(got, want)
+    print(f"{name}: bit-equal {same}" + ("" if same else
+                                         f" (agree {float(np.mean(got == want)):.6f})"),
+          flush=True)
+    if not same:
+        raise SystemExit(f"chip_smoke: {name} is not bit-equal")
+
+
+def video_phase(smi):
+    """Video inference through the command line (cli.infer_video) at
+    720x960, GOP 12, 0.5x, seeded random weights saved as the port's .pth:
+    (a) file-fed over a synthetic decoded sequence of VIDEO_GOPS GOPs; (b)
+    --video over its HEVC encode and H.264 carrier (or the line saying why
+    the native decoder cannot be built); (c) --streams and --gop_devices on
+    two gloo ranks; (d) the eval engines' prefetch. Returns the launch
+    counts of the command's paths."""
+    import tempfile
+
+    from arseg_tpu_torch.eval import EvalAlterRes
+    from arseg_tpu_torch.tools.labels import index_to_rgb
+    from arseg_tpu_torch.tools.video import NativeUnavailable, load_native
+    from arseg_tpu_torch.utils.checkpoint import save_checkpoint
+
+    phase(f"video inference: cli.infer_video, {H}x{W}, GOP {GOP}, {SCALE}x, bf16")
+    paths = {}
+    n = VIDEO_GOPS * GOP
+    with tempfile.TemporaryDirectory() as root:
+        data, flows, frames = _leg("sequence", smi, lambda: video_sequence(
+            os.path.join(root, "a"), VIDEO_GOPS))
+        t_data, t_flows = linked_sequence(data, flows, os.path.join(root, "t"),
+                                          VIDEO_TIMING_GOPS)
+        b_data, b_flows = linked_sequence(data, flows, os.path.join(root, "b"), VIDEO_GOPS, 1)
+        ckpt, common, want = {}, {}, {}
+        for backend in ("camvid-bise18", "camvid-psp18"):
+            ckpt[backend] = [os.path.join(root, f"{backend}-{m}.pth") for m in ("hr", "ar")]
+            for model, path in zip(make_models(backend), ckpt[backend]):
+                save_checkpoint(path, model)
+            common[backend] = ["--hr_snapshot", ckpt[backend][0], "--ar_snapshot",
+                               ckpt[backend][1], "--backend", backend, "--ref_gap", str(GOP),
+                               "--scale", str(SCALE), "--flow_shape", str(H), str(W)]
+        files = ["--data_path", data, "--flow_path", flows]
+        timing = {}
+        # (a) file-fed: each backend against gop_step, then its timing runs
+        for backend in ("camvid-bise18", "camvid-psp18"):
+            want[backend], wall, busy = video_reference(backend, ckpt[backend], data, flows,
+                                                        torch.bfloat16)
+            out = os.path.join(root, f"{backend}-a")
+            _, launches = _leg(f"(a) {backend}", smi, lambda: _infer(
+                files + common[backend] + ["--out_dir", out, "--stats_json", out + ".json"]))
+            expect_launches(launches, _path_launches(backend, VIDEO_GOPS),
+                            f"{backend} cli.infer_video")
+            paths[f"{backend} cli.infer_video"] = launches
+            _bit_equal(_pngs(out, n), want[backend], f"{backend} cli.infer_video PNGs against "
+                       f"gop_step in this process (bf16, {VIDEO_GOPS} GOPs)")
+            _stats(out + ".json")
+            runs = {}
+            for prefetch in (2, 0):
+                out = os.path.join(root, f"{backend}-t{prefetch}")
+                _, launches = _infer(["--data_path", t_data, "--flow_path", t_flows,
+                                      "--prefetch", str(prefetch), "--out_dir", out,
+                                      "--stats_json", out + ".json"] + common[backend])
+                expect_launches(launches, _path_launches(backend, VIDEO_TIMING_GOPS),
+                                f"{backend} cli.infer_video --prefetch {prefetch}")
+                _add(paths[f"{backend} cli.infer_video"], launches)
+                runs[prefetch] = (_pngs(out, VIDEO_TIMING_GOPS * GOP), _stats(out + ".json"))
+            _bit_equal(runs[0][0], runs[2][0], f"{backend} --prefetch 0 PNGs against "
+                       "--prefetch 2")
+            # the command's own device time: the --prefetch 2 run again, traced
+            out = os.path.join(root, f"{backend}-trace")
+            launches, kernels, copies = _traced_infer(
+                ["--data_path", t_data, "--flow_path", t_flows, "--out_dir", out]
+                + common[backend], out + "-log")
+            expect_launches(launches, _path_launches(backend, VIDEO_TIMING_GOPS),
+                            f"{backend} cli.infer_video under utils/profiling.trace")
+            _add(paths[f"{backend} cli.infer_video"], launches)
+            kernels, copies = kernels / VIDEO_TIMING_GOPS, copies / VIDEO_TIMING_GOPS
+            for prefetch, (_, s) in runs.items():
+                print(f"video inference {backend} file-fed --prefetch {prefetch}: end to end "
+                      f"{s['loop_ms_per_step']:.3f} ms/GOP, {s['loop_frames_per_sec']:.1f} "
+                      f"frames/s (host clock from the end of the warm-up GOP to the last PNG, "
+                      f"{s['loop_steps']} GOPs; waiting for the feeder "
+                      f"{1e3 * s['loop_feed_wait_s'] / s['loop_steps']:.3f} ms/GOP, for the "
+                      f"writer {1e3 * s['loop_write_wait_s'] / s['loop_steps']:.3f}); step "
+                      f"latency (StepTimer, the step alone) p50 "
+                      f"{s['p50_ms']:.3f} ms, p95 {s['p95_ms']:.3f}; the command's device time "
+                      f"(its --prefetch 2 run traced, {VIDEO_TIMING_GOPS} GOPs) kernels "
+                      f"{kernels:.3f} ms/GOP, copies {copies:.3f}; idle share 1 - kernels / "
+                      f"end-to-end ms = {1 - kernels / s['loop_ms_per_step']:.3f}; gop_step "
+                      f"alone {wall:.3f} wall ms/GOP, kernels {busy:.3f}; {smi}", flush=True)
+            timing[backend] = dict(gop_step_wall_ms=wall, gop_step_device_ms=busy,
+                                   command_kernels_ms=kernels, command_copies_ms=copies,
+                                   **{f"prefetch{p}": s for p, (_, s) in runs.items()})
+
+        # --gop_batch 2 over the 3 GOPs (a stack of 2, then the tail)
+        bise = "camvid-bise18"
+        out = os.path.join(root, "b2")
+        _, launches = _leg("(a) --gop_batch 2", smi, lambda: _infer(
+            files + common[bise] + ["--gop_batch", "2", "--out_dir", out]))
+        steps = -(-VIDEO_GOPS // 2)
+        expect_launches(launches, _path_launches(bise, steps), "cli.infer_video --gop_batch 2")
+        paths[f"{bise} cli.infer_video --gop_batch 2"] = launches
+        _agree(_pngs(out, n), want[bise], MULTI_AGREEMENT[torch.bfloat16],
+               f"{bise} --gop_batch 2 against --gop_batch 1, bf16")
+        f32 = {}
+        for b in (1, 2):
+            out = os.path.join(root, f"f32-b{b}")
+            _, launches = _infer(files + common[bise] + ["--gop_batch", str(b), "--dtype",
+                                                         "float32", "--out_dir", out])
+            _add(paths[f"{bise} cli.infer_video --gop_batch 2"], launches)
+            f32[b] = _pngs(out, n)
+        _bit_equal(f32[2], f32[1], f"{bise} --gop_batch 2 against --gop_batch 1, float32")
+        out = os.path.join(root, "color")
+        _, launches = _infer(files + common[bise] + ["--colorize", "--out_dir", out])
+        _add(paths[f"{bise} cli.infer_video"], launches)
+        _bit_equal(_pngs(out, n), index_to_rgb(want[bise]), "--colorize PNGs against "
+                   "index_to_rgb of the maps")
+
+        # (b) --video: the HEVC stream and its H.264 carrier, decoded in-process
+        try:
+            native = load_native()
+        except NativeUnavailable as e:
+            native = None
+            reason = str(e).strip().splitlines()
+            print(f"native decoder: {' | '.join(reason)}", flush=True)
+            print(f"video leg: not run: {reason[-1]}", flush=True)
+        if native is not None:
+            paths.update(_leg("(b) --video", smi, lambda: video_leg(
+                native, frames, root, common, smi)))
+
+        # (c) --streams over 2 file-fed streams and --gop_devices 2, two gloo ranks
+        jobs = [["--streams", f"{data}:{flows},{b_data}:{b_flows}", "--num_devices",
+                 str(CLI_WORLD), "--out_dir", os.path.join(root, "streams")],
+                files + ["--gop_devices", str(CLI_WORLD), "--out_dir", os.path.join(root, "gd")]]
+        jobs = [argv + common[bise] + ["--device", "cuda"] for argv in jobs]
+        logs, rank_launches = _leg(f"(c) --streams and --gop_devices on {CLI_WORLD} gloo ranks",
+                                   smi, lambda: _cli_ranks(jobs, root, video_rank,
+                                                           "cli.infer_video"))
+        print(f"rank 0's log:\n{logs[0]}", end="", flush=True)
+        shifted = np.concatenate([want[bise][GOP:], want[bise][:GOP]])
+        _bit_equal(_pngs(os.path.join(root, "streams", "s0"), n), want[bise],
+                   "--streams stream 0 against the stream served alone")
+        _bit_equal(_pngs(os.path.join(root, "streams", "s1"), n), shifted,
+                   "--streams stream 1 against the stream served alone")
+        _agree(_pngs(os.path.join(root, "gd"), n), want[bise], MULTI_AGREEMENT[torch.bfloat16],
+               f"--gop_devices {CLI_WORLD} against one card, bf16")
+        for j, name in enumerate((f"--streams --num_devices {CLI_WORLD}",
+                                  f"--gop_devices {CLI_WORLD}")):
+            total = {}
+            for r in range(CLI_WORLD):
+                expect_launches(rank_launches[r][j], _path_launches(bise, VIDEO_GOPS),
+                                f"cli.infer_video {name}, rank {r}")
+                _add(total, rank_launches[r][j])
+            paths[f"{bise} cli.infer_video {name}, {CLI_WORLD} gloo ranks"] = total
+
+        # (d) the eval engines' prefetch: histograms equal with 0 and 2, on
+        # numpy batches and on pinned ones (what a Loader(pin_memory=True)
+        # gives); ms per batch of each on the pinned ones
+        hr, lr = make_models()
+        loader = make_eval_batches(EVAL_BATCHES, EVAL_BATCH, (H, W), seed=9)
+        pinned_loader = [{k: _pinned_copy(v) for k, v in b.items()}
+                         for b in make_eval_batches(EVAL_TIMING_BATCHES, EVAL_BATCH, (H, W),
+                                                    seed=10)]
+        hists = {}
+        for kind, batches in (("numpy", loader), ("pinned", pinned_loader)):
+            for p in (0, 2):
+                hists[kind, p], launches = _counted(lambda: EvalAlterRes(
+                    scale=SCALE, dtype=torch.bfloat16, device="cuda", prefetch=p).histogram(
+                        hr, lr, batches, N_CLASSES))
+                _add(paths.setdefault("EvalAlterRes camvid-bise18 prefetch 0 and 2", {}),
+                     launches)
+        same = all(torch.equal(hists[kind, 0], hists[kind, 2]) for kind in ("numpy", "pinned"))
+        print(f"(d) EvalAlterRes histogram with prefetch 2 equal to prefetch 0, on numpy and "
+              f"on pinned batches: {same}", flush=True)
+        if not same:
+            raise SystemExit("chip_smoke: EvalAlterRes's prefetch changed the histogram")
+        eval_ms = {0: [], 2: []}
+        for p in (0, 2, 2, 0, 0, 2):
+            ms, launches = _counted(lambda: _eval_batch_ms(hr, lr, pinned_loader, p))
+            eval_ms[p].append(ms)
+            _add(paths["EvalAlterRes camvid-bise18 prefetch 0 and 2"], launches)
+        print(f"(d) EvalAlterRes camvid-bise18 {H}x{W} bf16, batches of {EVAL_BATCH} pinned: "
+              f"ms per batch after the first, prefetch 0 {eval_ms[0]}, prefetch 2 "
+              f"{eval_ms[2]} (order 0 2 2 0 0 2); {smi}", flush=True)
+        timing["eval_alter_res_ms_per_batch"] = eval_ms
+        print(f"video inference timings: {json.dumps(timing)}", flush=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _pinned_copy(a):
+    from arseg_tpu_torch.data.loader import pinned
+
+    t, view = pinned(a.shape, a.dtype)
+    view[...] = a
+    return t
+
+
+def _eval_batch_ms(hr, lr, batches, prefetch):
+    """EvalAlterRes.predictions over batches (bf16, camvid-bise18): the
+    host-clock ms per batch after the first, synchronised at both ends."""
+    from arseg_tpu_torch.eval import EvalAlterRes
+
+    maps = EvalAlterRes(scale=SCALE, dtype=torch.bfloat16, device="cuda",
+                        prefetch=prefetch).predictions(hr, lr, batches)
+    next(maps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in maps:
+        pass
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+
+
+def video_leg(native, frames, root, common, smi):
+    """(b) of video_phase: the sequence's frames encoded as HEVC and as the
+    H.264 carrier (NativeVideo.encode), served with --video --mv_carrier and
+    with --video --mv_analysis (the HEVC encode's x265 analysis sidecar),
+    each against the file-fed command over the same stream's decoded frames
+    and merged MVs. Returns the launch counts."""
+    paths = {}
+    vid = os.path.join(root, "video")
+    os.makedirs(vid)
+    hevc, carrier, an = (os.path.join(vid, x) for x in ("s.hevc", "s.264", "a.hevc"))
+    native.encode(frames, hevc, codec="libx265", gop=GOP)
+    native.encode(frames, carrier, codec="libx264", gop=GOP)
+    native.encode_analysis(frames, an, an + ".analysis", gop=GOP)
+    n = len(frames)
+    bise = "camvid-bise18"
+    for kind, stream, mvs, dump in (("carrier", hevc, carrier, native.mvdump),
+                                    ("analysis", an, an + ".analysis", native.hevc_mvdump)):
+        d = os.path.join(vid, kind)
+        dec, mvdir, data, flows = (os.path.join(d, x) for x in ("dec", "mvdump", "data", "mv"))
+        for x in (dec, mvdir, data, flows):
+            os.makedirs(x)
+        native.decode(stream, dec)
+        dump(mvs, mvdir)
+        for i in range(n):
+            os.rename(os.path.join(dec, f"decoded-{i + 1:03d}.png"),
+                      os.path.join(data, f"{i:05d}.png"))
+        for g0 in range(0, n, GOP):
+            bins = np.stack([np.fromfile(os.path.join(mvdir, f"test_{g0 + k:03d}.bin"),
+                                         np.int16).reshape(H, W, 3) for k in range(1, GOP)])
+            merged = native.merge_mv(bins, max_ref=GOP)
+            for k in range(GOP):
+                merged[k].tofile(os.path.join(flows, f"{g0 + k:05d}.bin"))
+        outs = {}
+        for name, argv in (("files", ["--data_path", data, "--flow_path", flows]),
+                           ("video", ["--video", stream, f"--mv_{kind}", mvs])):
+            out = os.path.join(d, f"out_{name}")
+            _, launches = _infer(argv + common[bise] + ["--out_dir", out, "--stats_json",
+                                                        out + ".json"])
+            expect_launches(launches, _path_launches(bise, n // GOP),
+                            f"cli.infer_video {name} ({kind})")
+            _add(paths.setdefault(f"{bise} cli.infer_video --video", {}), launches)
+            outs[name] = _pngs(out, n)
+            s = _stats(out + ".json")
+            print(f"video inference {bise} {name} ({kind}): end to end "
+                  f"{s['loop_ms_per_step']:.3f} ms/GOP, {s['loop_frames_per_sec']:.1f} "
+                  f"frames/s; step latency (StepTimer) p50 {s['p50_ms']:.3f} ms, p95 "
+                  f"{s['p95_ms']:.3f}; {smi}", flush=True)
+        _bit_equal(outs["video"], outs["files"], f"--video --mv_{kind} against the file-fed "
+                   "command over its decoded frames and merged MVs")
+    return paths
+
+
 def timed(fn, name):
     t0 = time.perf_counter()
     out = fn()
@@ -2259,6 +2764,7 @@ def main():
     paths.update(timed(lambda: data_parallel_phase(smi, stage2_ms), "data parallel"))
     paths.update(timed(lambda: cli_phase(smi), "command line"))
     paths.update(timed(lambda: backbone_phase(smi), "backbones"))
+    paths.update(timed(lambda: video_phase(smi), "video inference"))
     kernels = []
     # each kernel in bfloat16 at the shape of the first path that runs it;
     # its other shapes beside it
