@@ -1,10 +1,11 @@
 """CamVid compressed-video datasets (host-side, numpy NHWC outputs) — a
-copy of ``CamVid``, ``CamVidWithFlow`` and their helpers from
-``arseg_tpu/data/camvid.py`` (the port imports nothing of the JAX package),
-and ``CamVidWithFlowTest``, the label-free sequence reader of video
-inference (``cli/infer_video.py``). PIL and cv2 are imported where a file
-is opened, never when the module is imported. The variants no path of the
-port runs yet (``CamVidWithBiFlow``, ``CamVidwithCUmap*``) are not copied.
+copy of ``arseg_tpu/data/camvid.py`` (the port imports nothing of the JAX
+package): ``CamVid``, ``CamVidWithFlow`` and their helpers; the
+bidirectional ``CamVidWithBiFlow``; ``CamVidWithFlowTest``, the label-free
+sequence reader of video inference (``cli/infer_video.py``); and the
+CU-map readers ``CamVidwithCUmap`` and ``CamVidwithCUmapSingleBranch``.
+PIL and cv2 are imported where a file is opened, never when the module is
+imported.
 
 The reference loaders (``dataset/camvid.py``):
 directory crawl (sorted os.walk), the annotated-frame <-> encoded-sequence
@@ -278,6 +279,68 @@ class CamVidWithFlow(CamVid):
         return sample
 
 
+class CamVidWithBiFlow(CamVidWithFlow):
+    """Bidirectional variant (`dataset/camvid.py:782-1148`): two keyframes —
+    past at `decoded_idx - ref_gap`, future at `decoded_idx + (12 - ref_gap)`
+    — with flows from the `_last`/`_next` MV bins. Augmentation shares one
+    draw across all three parties (the reference's triple/tripleOF family)."""
+
+    def _ref_paths(self, data_path):
+        base = os.path.basename(data_path)
+        seq = base.split("_")[0]
+        info = SCENE_LENGTH_INFO[seq]
+        decoded_idx = (
+            dataset_frame_idx(base, seq)
+            - info["dataset_start_idx"]
+            + info["encoded_start_idx"]
+        )
+        past = os.path.join(
+            self.ref_path, seq, decoded_basename(decoded_idx - self.ref_gap, seq)
+        )
+        future = os.path.join(
+            self.ref_path, seq, decoded_basename(decoded_idx + (12 - self.ref_gap), seq)
+        )
+        return seq, past, future
+
+    def __getitem__(self, index):
+        data_path = self.data[index]
+        pil = self.mode == "train"
+        img = open_rgb(data_path, pil)
+        label = open_label(self.labels[index])
+        seq, past_path, future_path = self._ref_paths(data_path)
+        stem = os.path.basename(data_path)[:-4]
+        ref_img = open_rgb(past_path, pil)
+        ref_img2 = open_rgb(future_path, pil)
+        flow = read_flow_bin(
+            os.path.join(self.flow_path, seq, stem + "_last.bin"), self.flow_shape
+        )
+        flow2 = read_flow_bin(
+            os.path.join(self.flow_path, seq, stem + "_next.bin"), self.flow_shape
+        )
+
+        if self.mode == "train":
+            a, b, c = self.trans_color(
+                dict(im=img, lb=label), dict(im=ref_img, lb=label), dict(im=ref_img2, lb=label)
+            )
+            a, b, c = self.trans_homo(
+                a, dict(im=b["im"], lb=flow), dict(im=c["im"], lb=flow2)
+            )
+            img, label = a["im"], a["lb"]
+            ref_img, flow = b["im"], b["lb"]
+            ref_img2, flow2 = c["im"], c["lb"]
+
+        sample = {
+            "image": T.normalize(img, CAMVID_MEAN, CAMVID_STD),
+            "label": np.asarray(label, dtype=np.int32),
+            "ref_image": T.normalize(ref_img, CAMVID_MEAN, CAMVID_STD),
+            "flow": np.ascontiguousarray(flow, dtype=np.float32),
+            "ref_image2": T.normalize(ref_img2, CAMVID_MEAN, CAMVID_STD),
+            "flow2": np.ascontiguousarray(flow2, dtype=np.float32),
+        }
+        sample["existence"] = label_existence(sample["label"], CAMVID_CLASSES)
+        return sample
+
+
 class CamVidWithFlowTest:
     """Label-free loader over a decoded sequence (`dataset/camvid.py:1153-1426`):
     frames named `%05d.png`, keyframe = `idx // ref_gap * ref_gap`, flow from
@@ -316,3 +379,78 @@ class CamVidWithFlowTest:
             sample["ref_image"] = T.normalize(ref_img, CAMVID_MEAN, CAMVID_STD)
             sample["flow"] = np.ascontiguousarray(flow, dtype=np.float32)
         return sample
+
+
+CUMAP_MEAN = (0.75,)
+CUMAP_STD = (0.25,)
+
+
+def _cumap_path(root_dir, data_path, cumap_dir="CUmap"):
+    """CU-map filename quirks per scene (`dataset/camvid.py:1579-1594`):
+    0016E5 gains an 'f' prefix on the frame token, Seq05VD loses its one."""
+    base = os.path.basename(data_path)
+    seq = base.split("_")[0]
+    parts = base.split("_")
+    if seq == "0016E5":
+        parts[1] = "f" + parts[1]
+    elif seq == "Seq05VD":
+        parts[1] = parts[1][1:]
+    return os.path.join(root_dir, cumap_dir, seq, "_".join(parts))
+
+
+class CamVidwithCUmap(CamVid):
+    """Single-frame loader that attaches the HEVC CU-partition map as a 4th
+    input channel (`dataset/camvid.py:1430-1677`): CU map normalized with
+    mean .75 / std .25, geometric augs applied jointly by riding the image's
+    alpha channel."""
+
+    concat = True  # False -> SingleBranch: CU map returned separately
+
+    def __init__(self, root_dir, mode="train", cropsize=(640, 480),
+                 randomscale=(0.5, 0.675, 0.75, 0.875, 1.0, 1.25, 1.5, 1.75, 2.0, 2.5),
+                 rng=None):
+        super().__init__(root_dir, mode=mode, cropsize=cropsize,
+                         randomscale=randomscale, rng=rng)
+        self.root_dir = root_dir
+        # the parent's train pipeline, split at the colour step
+        self.color_trans = self.trans_train.ops[0]
+        self.homo_trans = T.Pipeline(self.trans_train.ops[1:])
+
+    def __getitem__(self, index):
+        from PIL import Image
+
+        img = open_rgb(self.data[index], pil=self.mode == "train")
+        if self.mode == "train":
+            img = img.convert("RGB")
+        label = open_label(self.labels[index])
+        cumap = Image.open(_cumap_path(self.root_dir, self.data[index])).convert("L")
+
+        if self.mode == "train":
+            out = self.color_trans(dict(im=img, lb=label))
+            img = out["im"]
+            img.putalpha(cumap)  # CU map rides alpha through the geometry augs
+            out = self.homo_trans(dict(im=img, lb=out["lb"]))
+            img, label = out["im"], out["lb"]
+            cumap = img.split()[-1]
+            img = Image.merge("RGB", img.split()[:-1])
+
+        image = T.normalize(img, CAMVID_MEAN, CAMVID_STD)
+        cu = T.normalize(cumap, CUMAP_MEAN, CUMAP_STD)[..., None]
+        label_arr = np.asarray(label, dtype=np.int32)
+        sample = {
+            "label": label_arr,
+            "existence": label_existence(label_arr, CAMVID_CLASSES),
+        }
+        if self.concat:
+            sample["image"] = np.concatenate([image, cu], axis=-1)
+        else:
+            sample["image"] = image
+            sample["cumap"] = np.ascontiguousarray(cu)
+        return sample
+
+
+class CamVidwithCUmapSingleBranch(CamVidwithCUmap):
+    """CU map as a separate side input instead of a 4th channel
+    (`dataset/camvid.py:1680-1870`)."""
+
+    concat = False

@@ -75,6 +75,9 @@ class PairPipeline:
         return parties
 
 
+TriplePipeline = PairPipeline
+
+
 class RandomCrop:
     def __init__(self, size, rng=None):
         self.size = size
@@ -156,6 +159,17 @@ class ColorJitter:
     def __call__(self, im_lb):
         rb, rc, rs = self._draw()
         return dict(im=self._enhance(im_lb["im"], rb, rc, rs), lb=im_lb["lb"])
+
+
+class MultiScale:
+    def __init__(self, scales):
+        self.scales = scales
+
+    def __call__(self, img):
+        W, H = img.size
+        return [
+            img.resize((int(W * r), int(H * r)), _image().BILINEAR) for r in self.scales
+        ]
 
 
 # ------------------------------------------- pair / triple (+OF) variants
@@ -258,10 +272,21 @@ class PairRandomCrop(RandomCrop):
         return tuple(f(d) for d in parties)
 
 
-# reference-name aliases: the OF family is the same N-ary ops
+# reference-name aliases: the OF/triple families are the same N-ary ops
 PairOFHorizontalFlip = PairHorizontalFlip
 PairOFRandomScaleV2 = PairRandomScale
 PairOFRandomCrop = PairRandomCrop
+TripleColorJitter = PairColorJitter
+TripleOFHorizontalFlip = PairHorizontalFlip
+TripleOFRandomScaleV2 = PairRandomScale
+TripleOFRandomCrop = PairRandomCrop
+
+
+class PairOFRandomScale(PairRandomScale):
+    """V1: flow resize without magnitude rescale (transform.py:263-289)."""
+
+    def __init__(self, scales=(1,), rng=None):
+        super().__init__(scales, rng=rng, scale_mv=False)
 
 
 def normalize(img, mean, std):

@@ -162,7 +162,39 @@ Phases, in order; any failure exits non-zero:
      --num_devices 2 (each stream bit-equal to it served alone) and
      --gop_devices 2 (maps >= 0.999 of the one-card run's); (d)
      EvalAlterRes's histogram with prefetch 2 equal to prefetch 0.
- 16. a JSON line of the kernels, and the last line {"ok": true, ...}.
+ 16. labelled synthetic scenes and the data variants: (a)
+     tools.synth_scenes.generate writes the test split (4 chapters) at
+     720x960, GOP 12, seed 0, with its seconds and bytes; (b) K2
+     (ops/warp.warp_feature) warps one chapter's keyframe by the
+     ground-truth merged MVs at every distance d = 1..11 at full
+     resolution, the RGB frame in float32 padded with zero channels to 8
+     (K2 takes C % 8 == 0): exactly equal to the plain warp on the CPU, and
+     its PSNR against the annotated frame above the unwarped keyframe's by
+     more than 3 dB at every d (the bar of the JAX package's mv_fidelity
+     tests, which the CPU run of the same check meets), the gains printed;
+     (c) the mIoU_d protocol over the ground-truth MVs: camvid-bise18,
+     seeded weights, bf16, nanmean, EvalConstRes at 1.0x and 0.5x for d =
+     0..11 and EvalAlterRes over CamVidWithFlow on the clean test split
+     (keyframes from the source sequence, ref_gap d + 1) for d = 1..11
+     (d = 0 is the HR model, as in the protocol), through
+     Loader(pin_memory=True) with prefetch 2: K1 and K2 once per
+     EvalAlterRes batch, every histogram counting every scored pixel, the
+     result files in the protocol's format; EvalAlterRes's ms per batch at
+     d = 11 in the steady state (the test split read over to 16 batches,
+     the batches after the loader's first round timed), fed by the loader
+     and from the same batches read beforehand into pinned memory (order
+     read, loader, loader, read); then d = 11 in float32 on the card
+     against the CPU (maps agree >= 0.999, mIoU within 1e-3); (d)
+     CamVidWithBiFlow, CamVidwithCUmap and CamVidwithCUmapSingleBranch in
+     train mode on the data variants' tree at 720x960 (its 3 samples read
+     over to 64 reads in one epoch) through Loader(pin_memory=True, 8
+     workers) and device_prefetch: the staged batches bit-equal to the
+     loader's host batches, the samples/s of each over the batches after
+     the workers' first round; (e) `cli.preprocess camvid` on one synthetic
+     chapter at 128x160 and `tools.mv_fidelity --synthetic`, when the
+     native library (native/, FFmpeg) builds, else a line
+     "preprocess/mv_fidelity: not run: <why>".
+ 17. a JSON line of the kernels, and the last line {"ok": true, ...}.
 Every phase prints its seconds.
 """
 
@@ -285,6 +317,27 @@ RESIDUAL_GAMMA = 0.3  # a random residual branch's last BN scale (random_trained
 # times several steps after its first
 VIDEO_GOPS, VIDEO_PAN, VIDEO_TIMING_GOPS = 3, 2, 8
 EVAL_TIMING_BATCHES = 8  # pinned 720x960 batches for the eval engines' prefetch timing
+# labelled synthetic scenes (arseg_tpu_torch/tools/synth_scenes.py): the test
+# split's SYNTH_CHAPTERS chapters at 720x960, GOP 12, seed SYNTH_SEED (its
+# default test split is 24 chapters, each writing 11 ground-truth bins of
+# 2.76 MB and 24 frames), read by the eval protocol's readers in batches of
+# SYNTH_BATCH; EvalAlterRes is timed over the split read over to
+# SYNTH_TIMING_READS samples, so that both loader workers have several batches
+SYNTH_CHAPTERS, SYNTH_SEED, SYNTH_BATCH, SYNTH_TIMING_READS = 4, 0, 2, 32
+# dB by which the keyframe warped by the ground-truth MVs beats the keyframe
+# unwarped, both against the annotated frame, at every distance: the bar of
+# the JAX package's tests of tools/mv_fidelity, which the same check on the
+# CPU meets on this chapter (tests/test_torch_preprocess.py)
+PSNR_MARGIN = 3.0
+K2_IMAGE_C = 8  # K2 takes C % 8 == 0: an RGB image in channels 0-2, zeros in 3-7
+# the data variants' tree (tests/variant_tree.py on tests/synthetic_data.py,
+# GOP VARIANT_GOP, 3 samples) at 720x960, read over to VARIANT_READS samples
+# in one epoch (4 batches for each of the camvid training policy's 8
+# workers) in that policy's augmentation
+VARIANT_GOP, VARIANT_READS, VARIANT_BATCH = 2, 64, 2
+# part (e)'s chapter: the tools' contract, not the card, so at the CPU
+# tests' size
+NATIVE_H, NATIVE_W = 128, 160
 
 
 def phase(name):
@@ -2668,20 +2721,38 @@ def _pinned_copy(a):
     return t
 
 
-def _eval_batch_ms(hr, lr, batches, prefetch):
+def _eval_batch_ms(hr, lr, batches, prefetch, skip=1):
     """EvalAlterRes.predictions over batches (bf16, camvid-bise18): the
-    host-clock ms per batch after the first, synchronised at both ends."""
+    host-clock ms per batch after the first `skip`, synchronised at both
+    ends."""
     from arseg_tpu_torch.eval import EvalAlterRes
 
     maps = EvalAlterRes(scale=SCALE, dtype=torch.bfloat16, device="cuda",
                         prefetch=prefetch).predictions(hr, lr, batches)
-    next(maps)
+    for _ in range(skip):
+        next(maps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in maps:
         pass
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    return (time.perf_counter() - t0) * 1e3 / (len(batches) - skip)
+
+
+class _ReadOver:
+    """A dataset's samples read over to n in one epoch (sample i is
+    dataset[i % len]), sharing its rng, so that a loader's workers each get
+    several batches of a small tree."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, n
+        self.rng = getattr(dataset, "rng", None)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.dataset[i % len(self.dataset)]
 
 
 def video_leg(native, frames, root, common, smi):
@@ -2736,6 +2807,293 @@ def video_leg(native, frames, root, common, smi):
     return paths
 
 
+def synth_gt_dir(root, d):
+    """The ground-truth merged-MV directory of distance d in a tree of
+    tools.synth_scenes.generate (GOP 12, its default 3000 kbps)."""
+    return os.path.join(root, "camvid-sequence", f"3M-GOP{GOP}", f"MVmapGT_GOP{GOP}_dist_{d}")
+
+
+def gt_warp_case(root, chapter=0):
+    """Chapter `chapter` (a test chapter) of a tools.synth_scenes tree: its
+    annotated frame uint8 [h, w, 3], the keyframes d = 1..GOP-1 frames
+    before it uint8 [GOP-1, h, w, 3], and the ground-truth merged MVs of
+    each d in pixels, float32 [GOP-1, h, w, 2]."""
+    from arseg_tpu_torch.data.camvid import open_rgb, read_flow_bin
+    from arseg_tpu_torch.tools import synth_scenes as S
+
+    info = S.SCENE_LENGTH_INFO[S.SCENE]
+    annot = info["encoded_start_idx"] + chapter * S.CHAPTER + S.ANNOT_POS
+    name = f"{S.SCENE}_{annot + info['dataset_start_idx'] - info['encoded_start_idx']:06d}"
+    cur = open_rgb(os.path.join(root, "camvid", "test", name + ".png"))
+    frames = os.path.join(root, "camvid-sequence", "frames", S.SCENE)
+    keys = np.stack([open_rgb(os.path.join(frames, f"{S.SCENE}_{annot - d:06d}.png"))
+                     for d in range(1, GOP)])
+    flows = np.stack([read_flow_bin(os.path.join(synth_gt_dir(root, d), S.SCENE, name + ".bin"),
+                                    (*cur.shape[:2], 2)) for d in range(1, GOP)])
+    return cur, keys, flows
+
+
+def warp_image(keys, flows, device):
+    """Each keyframe warped by its flow with K2 (ops/warp.warp_feature) on
+    `device`, in float32 with the channels padded with zeros to K2_IMAGE_C:
+    float32 [n, h, w, 3] on the CPU."""
+    from arseg_tpu_torch.ops.warp import warp_feature
+
+    src = torch.zeros((*keys.shape[:3], K2_IMAGE_C), dtype=torch.float32)
+    src[..., :3] = torch.from_numpy(keys)
+    fl = torch.from_numpy(flows).to(device)
+    return warp_feature(src.to(device), (fl[..., 0], fl[..., 1]))[..., :3].cpu()
+
+
+def psnr_gains(cur, keys, warped):
+    """dB by which each warped keyframe beats the keyframe unwarped, both
+    against the annotated frame (tools/mv_fidelity's PSNR)."""
+    from arseg_tpu_torch.tools.mv_fidelity import _psnr
+
+    return [float(_psnr(np.asarray(w), cur) - _psnr(k, cur)) for k, w in zip(keys, warped)]
+
+
+def synth_eval(root, smi):
+    """(c) of synth_phase: the mIoU_d protocol over the ground-truth MVs.
+    Returns the launch counts of EvalAlterRes's runs."""
+    from arseg_tpu_torch.data import CamVid, CamVidWithFlow, Loader
+    from arseg_tpu_torch.eval import EvalAlterRes, EvalConstRes, confusion_update, miou_from_hist
+    from arseg_tpu_torch.eval.protocol import _write_result
+
+    hr, lr = make_models()
+    camvid = os.path.join(root, "camvid")  # the reader's root: its test split is camvid/test
+    plain = CamVid(camvid, mode="test")
+    scored = sum(int((plain[i]["label"] != IGNORE).sum()) for i in range(len(plain)))
+    batches = -(-len(plain) // SYNTH_BATCH)
+
+    def loader(ds):
+        return Loader(ds, batch_size=SYNTH_BATCH, shuffle=False, num_workers=2,
+                      drop_last=False, pin_memory=True)
+
+    def flow_ds(d):
+        return CamVidWithFlow(camvid, mode="test", ref_path=os.path.join(
+            root, "camvid-sequence", "frames"), flow_path=synth_gt_dir(root, d), ref_gap=d + 1,
+            flow_shape=(H, W, 2))
+
+    def miou(name, run):
+        hist, launches = _counted(run)
+        if int(hist.sum()) != scored or hist.dtype != torch.int64:
+            raise SystemExit(f"chip_smoke: {name}'s histogram counts {int(hist.sum())} pixels, "
+                             f"not the {scored} scored")
+        return float(miou_from_hist(hist.cpu(), nanmean=True)), launches
+
+    kw = dict(dtype=torch.bfloat16, device="cuda", nanmean=True, prefetch=2)
+    rows = {"HR": [], "LR": [], "AR": []}
+    launches_ar = {}
+    for d in range(GOP):
+        rows["HR"].append(miou(f"EvalConstRes 1.0x, d {d}", lambda: EvalConstRes(
+            scale=1.0, **kw).histogram(hr, loader(plain), N_CLASSES))[0])
+        rows["LR"].append(miou(f"EvalConstRes {SCALE}x, d {d}", lambda: EvalConstRes(
+            scale=SCALE, **kw).histogram(lr, loader(plain), N_CLASSES))[0])
+        if d == 0:  # the protocol: distance 0 is the HR model on the keyframe
+            rows["AR"].append(rows["HR"][0])
+            continue
+        m, launches = miou(f"EvalAlterRes, d {d}", lambda: EvalAlterRes(
+            scale=SCALE, **kw).histogram(hr, lr, loader(flow_ds(d)), N_CLASSES))
+        expect_launches(launches, {"creff_qkv_fused": batches, "warp_bilinear": batches},
+                        f"EvalAlterRes over ground-truth MVs at d {d}")
+        _add(launches_ar, launches)
+        rows["AR"].append(m)
+    print(f"(c) every histogram counts the {scored} scored pixels; EvalAlterRes launches "
+          f"{launches_ar} ({batches} batches at each of d = 1..{GOP - 1})", flush=True)
+
+    # the steady state: the split read over to SYNTH_TIMING_READS samples,
+    # the batches after the loader's first round (one batch a worker) timed
+    timing = _ReadOver(flow_ds(GOP - 1), SYNTH_TIMING_READS)
+    read = list(loader(timing))
+    ms = {"loader": [], "read": []}
+    for how in ("read", "loader", "loader", "read"):
+        ms[how].append(_eval_batch_ms(hr, lr, read if how == "read" else loader(timing), 2,
+                                      skip=2))
+    del read
+    print(f"(c) EvalAlterRes bf16 at d {GOP - 1}, prefetch 2, ms per batch of {SYNTH_BATCH} "
+          f"over {SYNTH_TIMING_READS // SYNTH_BATCH - 2} batches after the first 2 (order read, "
+          f"loader, loader, read): fed by Loader(pin_memory=True, num_workers=2) "
+          f"{[round(x, 3) for x in ms['loader']]}, from the same batches read beforehand into "
+          f"pinned memory {[round(x, 3) for x in ms['read']]}; {smi}", flush=True)
+
+    result_dir = os.path.join(root, "results")
+    name = f"GOP{GOP}-3M-evaluation.txt"
+    files = {"HR": f"synth-camvid-bise18-1.0x-resolution-exp-{name}",
+             "LR": f"synth-camvid-bise18-{SCALE}x-resolution-exp-{name}",
+             "AR": f"synth-camvid-bise18-AR-{SCALE}x-resolution-exp-{name}"}
+    for m, file in files.items():
+        full = _write_result(result_dir, file, rows[m])
+        back = np.loadtxt(os.path.join(result_dir, file))
+        if back.shape != (GOP + 1,) or not np.allclose(back, full, rtol=0, atol=PROTOCOL_TOL):
+            raise SystemExit(f"chip_smoke: {file} is not the protocol's {GOP + 1} lines")
+        print(f"(c) {file}: mIoU_d (random weights, information) "
+              f"{[round(x, 6) for x in full[:-1]]}, mean {full[-1]:.6f}", flush=True)
+
+    d = GOP - 1
+    maps, hists = [], []
+    for device in ("cuda", "cpu"):
+        pairs = list(EvalAlterRes(scale=SCALE, device=device, nanmean=True).predictions(
+            hr, lr, loader(flow_ds(d))))
+        hist = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int64)
+        for label, pred in pairs:
+            hist = confusion_update(hist, label.cpu(), pred.cpu(), N_CLASSES, IGNORE)
+        maps.append(torch.cat([pred.cpu().flatten() for _, pred in pairs]))
+        hists.append(hist)
+    agree = (maps[0] == maps[1]).float().mean().item()
+    dmiou = abs(float(miou_from_hist(hists[0], nanmean=True))
+                - float(miou_from_hist(hists[1], nanmean=True)))
+    print(f"(c) EvalAlterRes at d {d}, card f32 vs CPU f32 at {H}x{W}: class maps agree "
+          f"{agree:.6f} (>= {AGREEMENT}), mIoU |d| {dmiou:.3e} (<= {MIOU_TOL})", flush=True)
+    if not (agree >= AGREEMENT and dmiou <= MIOU_TOL):
+        raise SystemExit("chip_smoke: EvalAlterRes over ground-truth MVs on the card disagrees "
+                         "with the CPU")
+    return launches_ar
+
+
+def variants_stage(root, smi):
+    """(d) of synth_phase: the CamVid variants in train mode through
+    Loader(pin_memory=True) and device_prefetch onto the card, against the
+    same loader's host batches without pinning."""
+    from arseg_tpu_torch.data import (CamVidWithBiFlow, CamVidwithCUmap,
+                                      CamVidwithCUmapSingleBranch, Loader, device_prefetch)
+    from arseg_tpu_torch.data.transform import SampleRng
+    from arseg_tpu_torch.train.trainer import DATASET_POLICY
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from synthetic_data import make_camvid_tree
+    from variant_tree import add_variant_extras
+
+    g = VARIANT_GOP
+    seq_root = make_camvid_tree(os.path.join(root, "variants"), gop=g, splits=("train",), h=H,
+                                w=W, flow_shape=(H, W, 2))
+    data_root = add_variant_extras(seq_root, g, H, W, (H, W, 2))
+    policy = DATASET_POLICY["camvid"]
+    aug = dict(mode="train", cropsize=policy["cropsize"], randomscale=policy["randomscale"])
+    variants = {
+        "CamVidWithBiFlow": lambda: CamVidWithBiFlow(
+            data_root, ref_gap=g, ref_path=os.path.join(seq_root, "frames"),
+            flow_path=os.path.join(seq_root, f"MVmap_GOP{g}_dist_{g - 1}"), flow_shape=(H, W, 2),
+            rng=SampleRng(), **aug),
+        "CamVidwithCUmap": lambda: CamVidwithCUmap(data_root, rng=SampleRng(), **aug),
+        "CamVidwithCUmapSingleBranch": lambda: CamVidwithCUmapSingleBranch(
+            data_root, rng=SampleRng(), **aug),
+    }
+    workers = policy["train_workers"]
+    for name, make in variants.items():
+        def loader(pin):
+            return Loader(_ReadOver(make(), VARIANT_READS), batch_size=VARIANT_BATCH,
+                          shuffle=True, seed=0, pin_memory=pin, num_workers=workers)
+
+        # the samples/s after the workers' first round (one batch each),
+        # which holds their start-up
+        staged = []
+        for b in device_prefetch(loader(True), "cuda"):
+            staged.append(b)
+            if len(staged) == workers:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        host = list(loader(False))
+        equal = len(staged) == len(host) and all(
+            sorted(s) == sorted(h) and all(s[k].is_cuda and torch.equal(
+                s[k].cpu(), torch.from_numpy(h[k])) for k in h) for s, h in zip(staged, host))
+        timed_samples = (len(staged) - workers) * VARIANT_BATCH
+        shapes = {k: tuple(v.shape) for k, v in staged[0].items()}
+        print(f"(d) {name} train mode, the tree's {len(make())} samples read over to "
+              f"{VARIANT_READS} in one epoch through Loader(pin_memory=True, num_workers="
+              f"{workers}) and device_prefetch: {timed_samples / secs:.2f} samples/s over the "
+              f"{timed_samples} after the workers' first round (information); batch {shapes}; "
+              f"staged bit-equal to the host batches: {equal}; {smi}", flush=True)
+        if not equal:
+            raise SystemExit(f"chip_smoke: {name}'s staged batches differ from the host batches")
+        del staged
+
+
+def native_tools_leg(root, smi):
+    """(e) of synth_phase: `cli.preprocess camvid` on one synthetic chapter
+    and `tools.mv_fidelity --synthetic`, each as a user runs it, when the
+    native library builds; else the line saying why not."""
+    from arseg_tpu_torch.tools.synth_scenes import generate
+    from arseg_tpu_torch.tools.video import NativeUnavailable, load_native
+
+    try:
+        load_native()
+    except NativeUnavailable as e:
+        reason = str(e).strip().splitlines()
+        print(f"native library: {' | '.join(reason)}", flush=True)
+        print(f"preprocess/mv_fidelity: not run: {reason[-1]}", flush=True)
+        return
+    tree = os.path.join(root, "native")
+    generate(tree, n_train=0, n_val=0, n_test=1, h=NATIVE_H, w=NATIVE_W, gop=GOP,
+             seed=SYNTH_SEED, progress=None)
+    seq = os.path.join(tree, "camvid-sequence")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "arseg_tpu_torch.cli.preprocess", "camvid",
+                    "--camvid_root", os.path.join(tree, "camvid"), "--sequence_root", seq,
+                    "--splits", "test"], cwd=REPO, check=True, capture_output=True, timeout=600)
+    out = os.path.join(seq, f"3M-GOP{GOP}")
+    name = os.listdir(os.path.join(tree, "camvid", "test"))[0]
+    want = [os.path.join(out, f"decoded_GOP{GOP}_dist_{d}", "test", name) for d in range(GOP)]
+    want += [os.path.join(out, f"MVmap_GOP{GOP}_dist_{d}", "0001TP", name[:-4] + ".bin")
+             for d in range(1, GOP)]
+    missing = [p for p in want if not os.path.exists(p)]
+    print(f"(e) cli.preprocess camvid on one chapter at {NATIVE_H}x{NATIVE_W} ({GOP} GOP "
+          f"windows): {time.perf_counter() - t0:.1f} s, missing outputs {missing}", flush=True)
+    if missing:
+        raise SystemExit("chip_smoke: cli.preprocess camvid left outputs out")
+    r = subprocess.run([sys.executable, "-m", "arseg_tpu_torch.tools.mv_fidelity",
+                        "--synthetic"], cwd=REPO, check=True, capture_output=True, text=True,
+                       timeout=600)
+    print(f"(e) mv_fidelity --synthetic: {r.stdout.strip().splitlines()[-1]}", flush=True)
+
+
+def synth_phase(smi):
+    """Labelled synthetic scenes and the data variants (the module
+    docstring's phase 16): (a) generate, (b) the ground-truth MVs against
+    K2, (c) the mIoU_d protocol over them, (d) the CamVid variants staged
+    on the card, (e) the native tools. Returns the launch counts of (c)."""
+    import tempfile
+
+    from arseg_tpu_torch.tools.synth_scenes import generate
+
+    phase(f"labelled synthetic scenes ({SYNTH_CHAPTERS} test chapters, {H}x{W}, GOP {GOP}) and "
+          "the data variants; K2 warps the RGB keyframe in float32, channels padded with zeros "
+          f"to {K2_IMAGE_C}")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        generate(root, n_train=0, n_val=0, n_test=SYNTH_CHAPTERS, h=H, w=W, gop=GOP,
+                 seed=SYNTH_SEED, progress=None)
+        secs = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(root)
+                     for f in fs)
+        print(f"(a) synth_scenes.generate: {SYNTH_CHAPTERS} chapters in {secs:.2f} s, {nbytes} "
+              f"bytes written; {smi}", flush=True)
+
+        cur, keys, flows = gt_warp_case(root)
+        card, launches = _counted(lambda: warp_image(keys, flows, "cuda"))
+        plain = warp_image(keys, flows, "cpu")
+        err = float((card - plain).abs().max())
+        gains = psnr_gains(cur, keys, card)
+        print(f"(b) K2 on [{GOP - 1},{H},{W},{K2_IMAGE_C}] float32, one keyframe per distance, "
+              f"launches {launches}: max |card - CPU plain| {err} (must be 0); PSNR gain of the "
+              f"ground-truth-MV warp over no warp, d = 1..{GOP - 1}: "
+              f"{[round(x, 3) for x in gains]} dB (each > {PSNR_MARGIN})", flush=True)
+        if err != 0 or launches.get("warp_bilinear") != 1:
+            raise SystemExit("chip_smoke: K2's warp by the ground-truth MVs is not its plain "
+                             "version's")
+        if min(gains) <= PSNR_MARGIN:
+            raise SystemExit("chip_smoke: the ground-truth-MV warp does not beat no warp by "
+                             f"{PSNR_MARGIN} dB at every distance")
+
+        launches = synth_eval(root, smi)
+        variants_stage(root, smi)
+        native_tools_leg(root, smi)
+    torch.cuda.empty_cache()
+    return {"camvid-bise18 EvalAlterRes over ground-truth MVs (synthetic scenes)": launches}
+
+
 def timed(fn, name):
     t0 = time.perf_counter()
     out = fn()
@@ -2765,6 +3123,7 @@ def main():
     paths.update(timed(lambda: cli_phase(smi), "command line"))
     paths.update(timed(lambda: backbone_phase(smi), "backbones"))
     paths.update(timed(lambda: video_phase(smi), "video inference"))
+    paths.update(timed(lambda: synth_phase(smi), "labelled synthetic scenes and data variants"))
     kernels = []
     # each kernel in bfloat16 at the shape of the first path that runs it;
     # its other shapes beside it
