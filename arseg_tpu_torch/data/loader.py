@@ -18,7 +18,9 @@ batch k+1 runs beside the compute of batch k. It is issued from the
 consumer's thread because the current stream is per thread. The staged
 tensors are allocated on the side stream and read on the consumer's, so
 each is ``record_stream``'d onto it: without that the caching allocator
-could hand a block out again while the compute still reads it.
+could hand a block out again while the compute still reads it. Each
+batch's staging (pinned copies, the device allocation and the enqueued
+copies) runs under a ``loader.stage`` span (``record_function``).
 
 Data parallel (``group``, a ``parallel.DataGroup`` of n ranks): every
 rank draws the same order from the same seed, and rank r yields rows
@@ -37,6 +39,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from arseg_tpu_torch.data.transform import SampleRng
 
@@ -225,7 +228,7 @@ def _stage(batch, device, stream):
             return dst
         return _host(v).to(device, non_blocking=True) if _is_array(v) else v
 
-    with torch.cuda.stream(stream):
+    with record_function("loader.stage"), torch.cuda.stream(stream):
         out = _map(one, batch)
         event = torch.cuda.Event()
         event.record(stream)

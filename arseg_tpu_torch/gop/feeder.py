@@ -25,6 +25,14 @@ Four stages:
 
 Threads suffice for host overlap: PIL/cv2/zlib decode, ``np.fromfile`` and
 CUDA event waits release the GIL (same argument as ``data/loader.py``).
+
+Spans (``record_function``): ``feeder.wait`` on the consumer's thread,
+only while it waits for a GOP that is not assembled yet (one span a
+starved take), and ``feeder.assemble`` around each GOP's assembly on a
+worker (around each call of the sequential producer for the next GOP,
+the last of which finds the source's end); the staging adds
+``loader.stage``. A profiler records the workers' spans only when it
+records every thread, as ``utils/profiling.trace`` does.
 """
 
 import functools
@@ -34,6 +42,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from arseg_tpu_torch._device import resolve_device
 from arseg_tpu_torch.data.loader import device_prefetch, pinned
@@ -122,7 +131,8 @@ class GOPFeeder:
                 if stop.is_set():
                     return
                 try:
-                    item = _assemble(self.dataset, gi * self.g, self.g, self.stage)
+                    with record_function("feeder.assemble"):
+                        item = _assemble(self.dataset, gi * self.g, self.g, self.stage)
                 except Exception as e:  # surface in consumer
                     item = e
                 with lock:
@@ -136,8 +146,10 @@ class GOPFeeder:
         try:
             for gi in range(n_gops):
                 with lock:
-                    while gi not in results:
-                        lock.wait()
+                    if gi not in results:
+                        with record_function("feeder.wait"):
+                            while gi not in results:
+                                lock.wait()
                     item = results.pop(gi)
                     emitted[0] = gi
                     lock.notify_all()
@@ -174,7 +186,11 @@ class GOPFeeder:
             try:
                 it = self.dataset.iter_gops(alloc=functools.partial(_empty, pin=self.stage))
                 try:
-                    for item in it:
+                    while True:
+                        with record_function("feeder.assemble"):
+                            item = next(it, done)
+                        if item is done:
+                            break
                         if not put(item):
                             return
                 finally:
@@ -190,7 +206,11 @@ class GOPFeeder:
         gi = 0
         try:
             while True:
-                item = q.get()
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    with record_function("feeder.wait"):
+                        item = q.get()
                 if item is done:
                     return
                 if isinstance(item, Exception):

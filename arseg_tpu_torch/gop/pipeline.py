@@ -42,7 +42,9 @@ together with ``parallel.gather_rows`` (the counterparts of
 
 Each stage runs under a ``torch.profiler.record_function`` span named
 ``gop.<stage>`` (a no-op unless a profiler is recording), which
-``tools_torch_profile_gop.py`` reads.
+``tools_torch_profile_gop.py`` reads, and the benchmark's per-layer
+readers too (``h100_bench/metrics``: ``lr_phase1_ms.serve``,
+``fuse_head_ms.serve``, and the idle gaps of its traced runs).
 """
 
 import copy

@@ -17,10 +17,19 @@ teacher's keyframe feature with ``ops.warp_feature`` (K2 on the card), and
 runs the student in merge mode, whose "local" fusion is
 ``ops.creff_local_module_resize`` (K1 on the card, with the composed
 backward).
+
+Each stage of a loss runs under a ``record_function`` span, which the
+benchmark's per-layer readers read: ``train.teacher`` (the frozen
+teacher's forwards, and in stage 2 the flow resize and the K2 warp of the
+key feature), ``train.student`` (the resize to the LR scale and the
+student's forward) and ``train.loss`` (the segmentation and feature
+losses). ``train/step.py`` adds ``train.step``, ``train.backward`` and
+``train.update``.
 """
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from arseg_tpu_torch.ops.warp import scale_and_resize_flow, warp_feature
 from arseg_tpu_torch.train import losses as L
@@ -88,10 +97,13 @@ def build_phase1_loss(model_type, dataset, cropsize_wh, scale, alpha=1.0, feat_l
         x_full = _nchw(batch["image"])
         target = None
         if feat_loss:
-            target = _resize(_teacher_feat(teacher, x_full), lr_hw)
-        outputs = student(_resize(x_full, lr_hw))
-        loss, out_p, metrics = _seg_losses(model_type, dataset, outputs, batch, out_hw, alpha)
-        loss = _feat_loss(feat_loss, target, out_p, loss, metrics)
+            with record_function("train.teacher"):
+                target = _resize(_teacher_feat(teacher, x_full), lr_hw)
+        with record_function("train.student"):
+            outputs = student(_resize(x_full, lr_hw))
+        with record_function("train.loss"):
+            loss, out_p, metrics = _seg_losses(model_type, dataset, outputs, batch, out_hw, alpha)
+            loss = _feat_loss(feat_loss, target, out_p, loss, metrics)
         metrics["loss"] = loss
         return loss, metrics
 
@@ -108,20 +120,21 @@ def build_phase2_loss(model_type, dataset, cropsize_wh, scale, alpha=1.0, feat_l
 
     def loss_fn(student, teacher, batch):
         x_full = _nchw(batch["image"])
-        highres_p = _teacher_feat(teacher, x_full)
-        x = _resize(x_full, lr_hw)
-        if stage2:
-            ref_p = _teacher_feat(teacher, _nchw(batch["ref_image"]))
-            if with_motion:
-                flow = scale_and_resize_flow(batch["flow"], tuple(ref_p.shape[-2:]),
-                                             mode="nearest", split=True)
-                ref_p = _nchw(warp_feature(ref_p.permute(0, 2, 3, 1), flow))
-            outputs = student(x, mode="merge", ref_p=ref_p)
-        else:
-            outputs = student(x)
-        loss, out_p, metrics = _seg_losses(model_type, dataset, outputs, batch, out_hw, alpha)
-        loss = _feat_loss(feat_loss, highres_p, _resize(out_p, highres_p.shape[-2:]), loss,
-                          metrics)
+        with record_function("train.teacher"):
+            highres_p = _teacher_feat(teacher, x_full)
+            if stage2:
+                ref_p = _teacher_feat(teacher, _nchw(batch["ref_image"]))
+                if with_motion:
+                    flow = scale_and_resize_flow(batch["flow"], tuple(ref_p.shape[-2:]),
+                                                 mode="nearest", split=True)
+                    ref_p = _nchw(warp_feature(ref_p.permute(0, 2, 3, 1), flow))
+        with record_function("train.student"):
+            x = _resize(x_full, lr_hw)
+            outputs = student(x, mode="merge", ref_p=ref_p) if stage2 else student(x)
+        with record_function("train.loss"):
+            loss, out_p, metrics = _seg_losses(model_type, dataset, outputs, batch, out_hw, alpha)
+            loss = _feat_loss(feat_loss, highres_p, _resize(out_p, highres_p.shape[-2:]), loss,
+                              metrics)
         metrics["loss"] = loss
         return loss, metrics
 

@@ -59,12 +59,18 @@ the model on its rows of the batch (``parallel.shard_batch``, or a
 A group of one rank exchanges nothing: the step is the one-device step.
 ``accum_steps > 1`` with more than one rank, or with ``bn_mode="master"``,
 raises, as in the JAX package.
+
+A step runs under a ``train.step`` span (``record_function``, a no-op
+unless a profiler records), its ``loss.backward()`` under
+``train.backward`` and the optimizer's step under ``train.update``; the
+objectives mark their own stages inside (``train/objectives.py``).
 """
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 from torch.func import functional_call
+from torch.profiler import record_function
 
 from arseg_tpu_torch._device import resolve_device
 from arseg_tpu_torch.gop.pipeline import place_model
@@ -137,7 +143,8 @@ def make_train_step(loss_fn, optimizer, mesh=None, bn_mode="sync", accum_steps=1
 
     def forward_backward(model, teacher, batch):
         loss, metrics = loss_fn(_student(model, compute_dtype), teacher, batch)
-        loss.backward()
+        with record_function("train.backward"):
+            loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
     def accumulate(model, teacher, batch):
@@ -201,22 +208,24 @@ def make_train_step(loss_fn, optimizer, mesh=None, bn_mode="sync", accum_steps=1
         """One update of ``model`` (this rank's rows of the batch under a
         mesh); ``teacher`` as ``teacher_copy`` gives it; ``generator`` the
         dropout masks' source. Returns the metrics."""
-        model.train()
-        set_dropout_generator(model, generator)
-        batch = to_device(batch)
-        optimizer.zero_grad()
-        if accum_steps > 1:
-            metrics = accumulate(model, teacher, batch)
-        elif not multi_device:
-            metrics = forward_backward(model, teacher, batch)
-        elif bn_mode == "sync":
-            with synced(mesh):
+        with record_function("train.step"):
+            model.train()
+            set_dropout_generator(model, generator)
+            batch = to_device(batch)
+            optimizer.zero_grad()
+            if accum_steps > 1:
+                metrics = accumulate(model, teacher, batch)
+            elif not multi_device:
                 metrics = forward_backward(model, teacher, batch)
-            metrics = reduce_step(metrics)
-        else:
-            metrics = reduce_step(forward_backward(model, teacher, batch))
-            keep_rank0_statistics(model)
-        optimizer.step()
-        return metrics
+            elif bn_mode == "sync":
+                with synced(mesh):
+                    metrics = forward_backward(model, teacher, batch)
+                metrics = reduce_step(metrics)
+            else:
+                metrics = reduce_step(forward_backward(model, teacher, batch))
+                keep_rank0_statistics(model)
+            with record_function("train.update"):
+                optimizer.step()
+            return metrics
 
     return step

@@ -1,7 +1,9 @@
 """Tracing and step timing — port of ``arseg_tpu/utils/profiling.py``.
 
-``trace(log_dir)`` records a ``torch.profiler`` trace of the host and the
-card and writes it as a Chrome trace (``chrome://tracing``, Perfetto);
+``trace(log_dir)`` records a ``torch.profiler`` trace of the host, every
+thread of it, and the card and writes it as a Chrome trace
+(``chrome://tracing``, Perfetto), so that the feeder's workers
+(``feeder.assemble``) show beside the card;
 ``annotate(name)`` is a named span in it (``record_function``);
 ``StepTimer`` times steps on the host clock and reports frames/s.
 
@@ -17,13 +19,13 @@ import os
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile, record_function
 
 
 @contextlib.contextmanager
 def trace(log_dir):
-    """Profile the block (the CPU, and the card when there is one) and
-    write ``log_dir/trace.json``:
+    """Profile the block (the CPU on every thread, and the card when there
+    is one) and write ``log_dir/trace.json``:
 
     with profiling.trace("/tmp/arseg-trace"):
         pipe.gop_step(keyframe, frames, flows)
@@ -32,7 +34,10 @@ def trace(log_dir):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    # a span opened on a thread other than this one (a feeder worker, a
+    # writer) reaches the profiler only when it records every thread
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=activities, experimental_config=every_thread) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(os.fspath(log_dir), "trace.json"))
 

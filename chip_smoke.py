@@ -316,6 +316,8 @@ RESIDUAL_GAMMA = 0.3  # a random residual branch's last BN scale (random_trained
 # it through symlinks (GOP k is GOP k mod VIDEO_GOPS), so that StepTimer
 # times several steps after its first
 VIDEO_GOPS, VIDEO_PAN, VIDEO_TIMING_GOPS = 3, 2, 8
+# the prefixes of the port's record_function spans, left out of device time
+PORT_SPANS = ("gop.", "feeder.", "loader.", "train.")
 EVAL_TIMING_BATCHES = 8  # pinned 720x960 batches for the eval engines' prefetch timing
 # labelled synthetic scenes (arseg_tpu_torch/tools/synth_scenes.py): the test
 # split's SYNTH_CHAPTERS chapters at 720x960, GOP 12, seed SYNTH_SEED (its
@@ -2439,11 +2441,12 @@ def video_reference(backend, ckpt, data, flows, dtype):
 
 def _device_ms(prof):
     """(kernels, copies and memsets): the card's ms in a torch.profiler
-    run, the record_function spans left out."""
+    run, the record_function spans left out: a span that encloses
+    launches is recorded on the card too, as an annotation."""
     cuda = torch.autograd.DeviceType.CUDA
     kernels = copies = 0.0
     for e in prof.key_averages():
-        if e.device_type != cuda or e.key.startswith("gop."):
+        if e.device_type != cuda or e.key.startswith(PORT_SPANS):
             continue
         if e.key.startswith(("Memcpy", "Memset")):
             copies += e.self_device_time_total / 1e3

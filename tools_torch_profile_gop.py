@@ -11,8 +11,7 @@ seeded random weights, uint8 frames; 720x960 for the camvid configs,
     python3 tools_torch_profile_gop.py --multi_gop 8                     # 8 GOPs a gop_step
 
 Prints the wall time per GOP (host clock around synchronised work, no
-profiler), the device's kernel time per GOP and its idle share against that
-wall time, the kernel time and host time of each pipeline stage (the
+profiler), the kernel time and host time of each pipeline stage (the
 ``gop.*`` record_function spans of arseg_tpu_torch/gop/pipeline.py) and the
 kernels by device time, from torch.profiler over a steady window after two
 warm-up clips. A clip is 3 GOPs through scan_step, or with --multi_gop B, B
@@ -105,17 +104,10 @@ def main():
           f"{cs.GOP * 1e3 / wall:.1f} frames/s; all: {[round(x, 3) for x in walls]}", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         clip()
         torch.cuda.synchronize()
-        wall_prof = (time.perf_counter() - t0) * 1e3 / gops
     events = prof.key_averages()
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    # kernels only: the gop.* spans also appear as device-side annotations
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == cuda and not e.key.startswith("gop.")) / 1e3 / gops
-    print(f"profiled wall {wall_prof:.3f} ms/GOP; device kernels {busy:.3f} ms/GOP; "
-          f"idle share against the unprofiled median wall {1 - busy / wall:.3f}", flush=True)
     for e in events:
         if e.device_type == cuda and any(k in e.key for k in PORT_KERNELS):
             print(f"  kernel {e.key[:110]}: {e.self_device_time_total / 1e3 / gops:.3f} "
