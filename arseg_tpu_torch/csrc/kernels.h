@@ -6,6 +6,7 @@
 // float32 and 1 for bfloat16; all pointers are to contiguous NHWC data.
 #pragma once
 
+#include <stddef.h>
 #include <stdint.h>
 
 #ifdef __cplusplus
@@ -20,6 +21,23 @@ int arseg_creff_qkv_fused(void* out, const void* lr_up, const void* ref,
                           const float* taps, const float* bias, int n, int h,
                           int w, int c, int kh, int kw, int dtype,
                           void* stream);
+
+// The backward of arseg_creff_qkv_fused for an incoming gradient g of its
+// output: d_lr = d lr_up and d_ref = d ref ([n, h, w, c] of the input
+// type; d_ref may be null, and is then not computed), d_taps = the
+// gradients of taps and bias as [3][10][c] float32 (q, k, v; taps 0-8,
+// then the bias). workspace: arseg_creff_qkv_fused_backward_workspace(...)
+// bytes, owned by the caller. Every input and the workspace are 16-byte
+// aligned. No float atomics: the same inputs give the same bits.
+// c % 16 == 0; kh == kw in {3, 5, 7}.
+size_t arseg_creff_qkv_fused_backward_workspace(int n, int h, int w, int c,
+                                                int k, int dtype);
+int arseg_creff_qkv_fused_backward(void* d_lr, void* d_ref, float* d_taps,
+                                   void* workspace, const void* lr_up,
+                                   const void* ref, const void* g,
+                                   const float* taps, const float* bias, int n,
+                                   int h, int w, int c, int kh, int kw,
+                                   int dtype, void* stream);
 
 // out[n,y,x] = argmax_k(sum_c round(fused[n,y,x,c]) * fc_w[c,k] + fc_b[k]),
 // fused as in arseg_creff_qkv_fused, rounded to the input type; lowest

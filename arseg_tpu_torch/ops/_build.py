@@ -14,11 +14,15 @@ once. The launchers return ``cudaGetLastError()`` and the callables below
 raise on a non-zero code.
 
 The callables: ``creff_qkv_fused(out, lr_up, ref, taps, bias, kh, kw)``,
+``creff_qkv_fused_backward(d_lr, d_ref, d_taps, workspace, lr_up, ref, g,
+taps, bias, kh, kw)`` (``d_ref`` may be None) with
+``creff_qkv_fused_backward_workspace(lr_up, kh)`` (its workspace's bytes),
 ``creff_phase2_argmax(out, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)``,
 ``creff_attention(out, q, k, v, kh, kw)``,
 ``creff_phase2_upsample_argmax(out, lr_up, ref, taps, bias, fc_w, fc_b,
 kh, kw)`` and ``warp_bilinear(out, src, fx, fy, align_corners)``. Launch
-counts for the wrappers in ``creff_kernel.py``, ``creff_head_kernel.py``,
+counts for the wrappers in ``creff_kernel.py``, ``creff_backward_kernel.py``,
+``creff_head_kernel.py``,
 ``creff_attention_kernel.py``, ``creff_upsample_head_kernel.py`` and
 ``warp_kernel.py`` live in ``LAUNCHES``.
 """
@@ -38,8 +42,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("creff_qkv_fused.cu", "creff_phase2_argmax.cu", "creff_attention.cu",
-                  "creff_phase2_upsample_argmax.cu", "warp_bilinear.cu")
+KERNEL_SOURCES = ("creff_qkv_fused.cu", "creff_qkv_fused_backward.cu", "creff_phase2_argmax.cu",
+                  "creff_attention.cu", "creff_phase2_upsample_argmax.cu", "warp_bilinear.cu")
 HEADERS = ("kernels.h", "creff_module.cuh", "creff_module_mma.cuh")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17"]
@@ -121,6 +125,11 @@ def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.arseg_creff_qkv_fused.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.arseg_creff_qkv_fused.restype = i
+    lib.arseg_creff_qkv_fused_backward_workspace.argtypes = [i, i, i, i, i, i]
+    lib.arseg_creff_qkv_fused_backward_workspace.restype = ctypes.c_size_t
+    lib.arseg_creff_qkv_fused_backward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                                   p]
+    lib.arseg_creff_qkv_fused_backward.restype = i
     lib.arseg_creff_phase2_argmax.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.arseg_creff_phase2_argmax.restype = i
     lib.arseg_creff_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
@@ -146,6 +155,19 @@ def _bind(lib):
         check(lib.arseg_creff_qkv_fused(out.data_ptr(), lr_up.data_ptr(), ref.data_ptr(),
                                         taps.data_ptr(), bias.data_ptr(), n, h, w, c, kh,
                                         kw, code(lr_up), stream(out)), "creff_qkv_fused")
+
+    def creff_qkv_fused_backward_workspace(lr_up, k):
+        n, h, w, c = lr_up.shape
+        return lib.arseg_creff_qkv_fused_backward_workspace(n, h, w, c, k, code(lr_up))
+
+    def creff_qkv_fused_backward(d_lr, d_ref, d_taps, workspace, lr_up, ref, g, taps, bias, kh,
+                                 kw):
+        n, h, w, c = lr_up.shape
+        check(lib.arseg_creff_qkv_fused_backward(
+            d_lr.data_ptr(), None if d_ref is None else d_ref.data_ptr(), d_taps.data_ptr(),
+            workspace.data_ptr(), lr_up.data_ptr(), ref.data_ptr(), g.data_ptr(),
+            taps.data_ptr(), bias.data_ptr(), n, h, w, c, kh, kw, code(lr_up), stream(d_lr)),
+            "creff_qkv_fused_backward")
 
     def creff_phase2_argmax(out, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
         n, h, w, c = lr_up.shape
@@ -175,6 +197,9 @@ def _bind(lib):
               "warp_bilinear")
 
     return types.SimpleNamespace(creff_qkv_fused=creff_qkv_fused,
+                                 creff_qkv_fused_backward=creff_qkv_fused_backward,
+                                 creff_qkv_fused_backward_workspace=(
+                                     creff_qkv_fused_backward_workspace),
                                  creff_phase2_argmax=creff_phase2_argmax,
                                  creff_attention=creff_attention,
                                  creff_phase2_upsample_argmax=creff_phase2_upsample_argmax,

@@ -37,11 +37,12 @@ def pack_qkv(q_w, q_b, k_w, k_b, v_w, v_b):
     return taps.float().contiguous(), bias.float().contiguous()
 
 
-def _dw3(x, taps, bias):
-    """3x3 depthwise conv (zero padding) of NHWC x in float32, taps summed
-    in the kernel's order (columns outer, rows inner), then the bias."""
+def _dw3(x, taps, bias, dtype=torch.float32):
+    """3x3 depthwise conv (zero padding) of NHWC x in float32 (or ``dtype``),
+    taps summed in the kernel's order (columns outer, rows inner), then the
+    bias."""
     n, h, w, _ = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    xp = F.pad(x.to(dtype), (0, 0, 1, 1, 1, 1))
     acc = None
     for b in range(3):
         for a in range(3):

@@ -13,15 +13,17 @@ caller computed; its forward goes through K4
 (``creff_attention_kernel.creff_attention``). ``creff_local_module`` is
 the whole MyAttention forward (3x3 depthwise Q/K/V convs + windowed
 attention + residual); its forward goes through K1
-(``creff_kernel.creff_qkv_fused``). Each runs the kernel on the card and
-its plain version on the CPU; each backward re-derives the gradients
-through the composed ops, as the JAX custom_vjps do.
+(``creff_kernel.creff_qkv_fused``), its backward through K1B
+(``creff_backward_kernel.creff_qkv_fused_backward``, the analytic
+gradients). Each runs the kernel on the card and its plain version on the
+CPU. ``creff_attention``'s backward re-derives the gradients through the
+composed ops, as the JAX custom_vjps do.
 """
 
 import torch
 import torch.nn.functional as F
 
-from arseg_tpu_torch.ops import creff_attention_kernel, creff_kernel
+from arseg_tpu_torch.ops import creff_attention_kernel, creff_backward_kernel, creff_kernel
 from arseg_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -89,7 +91,8 @@ def _dwconv3(x, weight, bias):
 
 
 def module_composed(lr_up, hr, q_w, q_b, k_w, k_b, v_w, v_b, kh, kw):
-    """MyAttention forward through composed ops (the differentiable form)."""
+    """MyAttention forward through composed ops (the differentiable form:
+    autograd over it is the yardstick of K1B's gradients)."""
     q = _dwconv3(lr_up, q_w, q_b)
     k = _dwconv3(hr, k_w, k_b)
     v = _dwconv3(hr, v_w, v_b)
@@ -107,11 +110,13 @@ class _CreffLocalModule(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = module_composed(*inputs, *ctx.window)
-        grads = torch.autograd.grad(out, inputs, g)
-        return (*grads, None, None)
+        lr_up, hr, *wb = ctx.saved_tensors
+        taps, bias = creff_kernel.pack_qkv(*wb)
+        d_lr, d_hr, d_tb = creff_backward_kernel.creff_qkv_fused_backward(
+            lr_up, hr, g, taps.to(lr_up.device), bias.to(lr_up.device), *ctx.window,
+            need_ref=ctx.needs_input_grad[1])
+        return (d_lr if ctx.needs_input_grad[0] else None, d_hr,
+                *creff_backward_kernel.unpack_qkv_grads(d_tb, wb), None, None)
 
 
 def creff_local_module(lr_up, hr, q_w, q_b, k_w, k_b, v_w, v_b, kh: int = 7, kw: int = 7):
@@ -123,6 +128,6 @@ def creff_local_module(lr_up, hr, q_w, q_b, k_w, k_b, v_w, v_b, kh: int = 7, kw:
 def creff_local_module_resize(lr, hr, q_w, q_b, k_w, k_b, v_w, v_b, kh: int = 7, kw: int = 7):
     """MyAttention forward taking lr at its own resolution: bilinear resize
     to hr's size (align_corners=True), then the module. Gradients flow
-    through the resize and the module's composed backward."""
+    through the resize and the module's backward (K1B)."""
     lr_up = resize_bilinear(lr, hr.shape[1:3], align_corners=True)
     return creff_local_module(lr_up, hr, q_w, q_b, k_w, k_b, v_w, v_b, kh, kw)

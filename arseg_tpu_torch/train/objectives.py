@@ -15,7 +15,7 @@ Phase-2 stage 2 resizes the flows to the teacher feature's grid
 (magnitude rescale, then nearest, ``train_pair.py:345-348``), warps the
 teacher's keyframe feature with ``ops.warp_feature`` (K2 on the card), and
 runs the student in merge mode, whose "local" fusion is
-``ops.creff_local_module_resize`` (K1 on the card, with the composed
+``ops.creff_local_module_resize`` (K1 on the card, with K1B as its
 backward).
 
 Each stage of a loss runs under a ``record_function`` span, which the

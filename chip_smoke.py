@@ -17,8 +17,9 @@ Phases, in order; any failure exits non-zero:
      the multi-GOP step's (8 GOPs: K1 over 88 frames, K2 from 8 sources to
      88 frames), streaming's (one frame), EvalAlterRes's (a batch of 2
      frames, K2 with one source per frame) and the training step's (a
-     batch of 16, K2 with one source per frame), and K1 at V1's C=64 shape
-     for information
+     batch of 16, K2 with one source per frame), K1B (K1's backward) at the
+     training step's (hr takes no gradient) and psp18 V2's, and K1 at V1's
+     C=64 shape for information
      (no path runs it there); kernel, plain and library times (CUDA events,
      median of 20 kernel runs, of 5 plain runs at the 720x960 shapes, each
      run over back-to-back calls filling about 1 ms); K2 must equal its
@@ -74,13 +75,14 @@ Phases, in order; any failure exits non-zero:
      camvid policy's 720x960 crop, LR 0.5x, the teacher the fused class in
      eval mode, the student's final conv copied from it and frozen: 2
      stage-1 then 4 stage-2 Adam steps in bf16 at batch 16 on one repeated
-     batch (K1 and K2 never in stage 1, once per stage-2 step; each loss
-     finite, the 4th stage-2 loss below the 1st; float32 master
+     batch (K1, K1B and K2 never in stage 1, once per stage-2 step; each
+     loss finite, the 4th stage-2 loss below the 1st; float32 master
      parameters, optimizer state and BN statistics; the frozen conv equal
      to the teacher's; the median ms per step of each stage after its
-     first, the peak device memory, and K1's composed backward at the
-     step's shape); one SGD step of each stage at 128x160, batch 2, in
-     float32 on the card against the CPU (the loss within 1e-4, each
+     first, the peak device memory, and K1's backward (K1B) at the step's
+     shape beside its bound and autograd over the composed module); one
+     SGD step of each stage at 128x160, batch 2, in float32 on the card
+     against the CPU (the loss within 1e-4, each
      gradient within the larger of 1e-3 and 4 x its float32 error against
      the CPU in float64, the BN running statistics within 1e-4);
      TrainLoop.run_epoch over 3 in-memory batches with its launch counts,
@@ -246,6 +248,11 @@ TOL = {
     "creff_qkv_fused": {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -6},
     "warp_bilinear": {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7},
     "creff_attention": {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -6},
+    # each gradient (d lr_up, d ref, each conv's taps and bias) against its
+    # largest value: float32 sums in another order; bf16: Q, K, V the same
+    # bits, P rounded to bf16 after float32 logits summed in another order
+    # (a unit of 2^-8 at a few positions), d lr_up and d ref rounded once
+    "creff_qkv_fused_backward": {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6},
 }
 # kernels that repeat their plain version's arithmetic step by step: besides
 # the tolerance, max |kernel - plain| must be 0
@@ -438,6 +445,33 @@ def k1_case(gen, dt, n, hw, c, plain_runs):
                 library_ms=None,
                 bytes=3 * lr_up.numel() * lr_up.element_size() + (taps.numel() + bias.numel()) * 4,
                 flops=lr_up.numel() * 251)
+
+
+# K1B's operations an element: window products 5 x 49 multiply-adds (s,
+# dP, dq, dk, dv), q, k, v recomputed (3 x 18), the taps' and biases'
+# gradients (3 x 18), dq's transposed conv (18); dk's and dv's (36) with d ref
+K1B_FLOPS, K1B_REF_FLOPS = 616, 36
+
+
+def k1b_case(gen, dt, n, hw, c, plain_runs, need_ref):
+    """K1B at [n, *hw, c] against its plain version, d ref only with
+    need_ref. Its bound: lr_up, ref and g read, d lr_up (and d ref)
+    written, once each."""
+    from arseg_tpu_torch.ops import creff_backward_kernel as k1b
+
+    lr_up, ref, g = (torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
+                     for _ in range(3))
+    taps, bias = _qkv_params(gen, c)
+    run = lambda: k1b.creff_qkv_fused_backward(lr_up, ref, g, taps, bias, 7, 7, need_ref)
+    plain = lambda: k1b.creff_qkv_fused_backward_plain(lr_up, ref, g, taps, bias, 7, 7,
+                                                       need_ref)
+    got, want = run(), plain()
+    pairs = [(got[0], want[0])] + ([(got[1], want[1])] if need_ref else [])
+    err = max(check("creff_qkv_fused_backward", dt, a, b)
+              for a, b in pairs + [(got[2][i], want[2][i]) for i in range(3)])
+    return dict(max_abs_err=err, ms=median_ms(run), plain_ms=median_ms(plain, runs=plain_runs),
+                library_ms=None, bytes=(4 + need_ref) * lr_up.numel() * lr_up.element_size(),
+                flops=lr_up.numel() * (K1B_FLOPS + K1B_REF_FLOPS * need_ref))
 
 
 def k2_case(gen, dt, n, hw, c, plain_runs, flow_hw=(H, W), sources=1):
@@ -874,6 +908,12 @@ def kernel_phase():
         ("creff_qkv_fused", "training stage 2", k1_case, (TRAIN_BATCH, FEAT_HW, C, PLAIN_RUNS_PSP)),
         ("warp_bilinear", "training stage 2", k2_case,
          (TRAIN_BATCH, FEAT_HW, C, PLAIN_RUNS_PSP, (H, W), TRAIN_BATCH)),
+        # K1's backward: the training step's (hr is the teacher's warped
+        # feature, under no_grad), and psp18 V2's C = 512 with d ref
+        ("creff_qkv_fused_backward", "training stage 2", k1b_case,
+         (TRAIN_BATCH, FEAT_HW, C, PLAIN_RUNS_PSP, False)),
+        ("creff_qkv_fused_backward", "psp18 V2", k1b_case, (n, FEAT_HW, C_PSP_V2, PLAIN_RUNS_PSP,
+                                                            True)),
         # information: no driven path runs K1 at V1's shape (V1 runs K3 there)
         ("creff_qkv_fused", "psp18 V1 (information)", k1_case, big),
     ]
@@ -1423,11 +1463,13 @@ def train_steps_phase(smi):
     camvid-bise18 at 720x960, batch 16, on one repeated batch, with the
     launch counts of each stage, the median ms per step, the peak device
     memory, and the float32 master state and frozen final conv checked;
-    then the time of K1's composed backward at the step's shape."""
+    then the time of K1's backward (K1B) at the step's shape, beside its
+    bound and autograd over the composed module (what the backward was
+    before K1B)."""
     import copy
 
     from arseg_tpu_torch.ops import _build
-    from arseg_tpu_torch.ops.local_attention import creff_local_module
+    from arseg_tpu_torch.ops.local_attention import creff_local_module, module_composed
     from arseg_tpu_torch.train.step import teacher_copy
 
     phase(f"training: camvid-bise18 phase 2, {TRAIN_STEPS[0]} stage-1 then {TRAIN_STEPS[1]} "
@@ -1453,8 +1495,10 @@ def train_steps_phase(smi):
         print(f"stage {stage}: losses {losses[stage]}, ms per step {ms[stage]}, launches "
               f"{launches[stage]}", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    expect_launches(launches[1], {"creff_qkv_fused": 0, "warp_bilinear": 0}, "training stage 1")
+    expect_launches(launches[1], {"creff_qkv_fused": 0, "creff_qkv_fused_backward": 0,
+                                  "warp_bilinear": 0}, "training stage 1")
     expect_launches(launches[2], {"creff_qkv_fused": TRAIN_STEPS[1],
+                                  "creff_qkv_fused_backward": TRAIN_STEPS[1],
                                   "warp_bilinear": TRAIN_STEPS[1]}, "training stage 2")
     if not all(np.isfinite(losses[1] + losses[2])):
         raise SystemExit("chip_smoke: a training loss is not finite")
@@ -1469,26 +1513,36 @@ def train_steps_phase(smi):
             and torch.equal(fc.bias.cpu(), teacher_cpu.final_conv.bias)):
         raise SystemExit("chip_smoke: the frozen final conv moved")
 
-    # K1's composed backward at the stage-2 step's shape (the student's
-    # fusion at [16, 90, 120, 256], bf16): forward + backward less forward
+    # K1's backward (K1B) at the stage-2 step's shape (the student's fusion
+    # at [16, 90, 120, 256], bf16, ref the teacher's warped feature under
+    # no_grad): forward + backward less forward; the yardstick, autograd
+    # over the composed module (its forward and backward), is what the
+    # module's backward ran before K1B
     gen = torch.Generator(device="cuda").manual_seed(3)
     fa = student.fuse_attention
     wb = [t.detach().to(torch.bfloat16).requires_grad_(True) for conv in
           (fa.lr_query_conv, fa.hr_key_conv, fa.hr_value_conv) for t in (conv.weight, conv.bias)]
     shape = (TRAIN_BATCH, *FEAT_HW, C)
-    lr_up, ref = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
-                  .requires_grad_(True) for _ in range(2))
-    g = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+    lr_up, ref, g = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                     for _ in range(3))
+    lr_up.requires_grad_(True)
     fwd = median_ms(lambda: creff_local_module(lr_up, ref, *wb, 7, 7), runs=5)
+    _build.LAUNCHES.clear()
     both = median_ms(lambda: torch.autograd.backward(creff_local_module(lr_up, ref, *wb, 7, 7), g),
                      runs=5)
+    if _build.LAUNCHES["creff_qkv_fused_backward"] != _build.LAUNCHES["creff_qkv_fused"]:
+        raise SystemExit("chip_smoke: the module's backward did not launch K1B once a call")
+    composed = median_ms(lambda: torch.autograd.grad(module_composed(lr_up, ref, *wb, 7, 7),
+                                                     [lr_up, *wb], g), runs=3)
+    k1b_bound = 4 * lr_up.numel() * lr_up.element_size() / HBM_BYTES_PER_S * 1e3
     # a stage's first step pays one-time costs (cuDNN set-up, the first
     # use of each kernel); the median is of the steps after it
     step_ms = {stage: float(np.median(ms[stage][1:])) for stage in ms}
     print(f"training bf16 batch {TRAIN_BATCH} {TRAIN_HW}: median ms per step after the first, "
           f"stage 1 {step_ms[1]:.3f}, stage 2 {step_ms[2]:.3f}; peak device memory {peak:.3f} GiB; K1 "
-          f"at {list(shape)}: forward {fwd:.3f} ms, composed backward {both - fwd:.3f} ms "
-          f"({(both - fwd) / step_ms[2]:.3f} of a stage-2 step); losses fall "
+          f"at {list(shape)}: forward {fwd:.3f} ms, backward (K1B) {both - fwd:.3f} ms "
+          f"({(both - fwd) / step_ms[2]:.3f} of a stage-2 step; bound {k1b_bound:.4f} ms; "
+          f"autograd over the composed module {composed:.3f} ms); losses fall "
           f"{losses[2][0]:.5f} -> {losses[2][-1]:.5f}; on {smi}", flush=True)
     del student, teacher, batch
     torch.cuda.empty_cache()
@@ -1583,6 +1637,7 @@ def train_loop_phase():
         step, student, teacher, loader, 0))
     launches = dict(_build.LAUNCHES)
     expect_launches(launches, {"creff_qkv_fused": TRAIN_EPOCH_BATCHES,
+                               "creff_qkv_fused_backward": TRAIN_EPOCH_BATCHES,
                                "warp_bilinear": TRAIN_EPOCH_BATCHES}, "TrainLoop")
     if not np.isfinite(mean_loss) or not student.training:
         raise SystemExit("chip_smoke: TrainLoop.run_epoch failed")
@@ -3133,6 +3188,9 @@ def main():
     sources = {
         "creff_qkv_fused": ("arseg_tpu_torch/csrc/creff_qkv_fused.cu",
                             "arseg_tpu/ops/pallas_creff.py:368", "bise18"),
+        "creff_qkv_fused_backward": ("arseg_tpu_torch/csrc/creff_qkv_fused_backward.cu",
+                                     "none (the JAX custom_vjp re-derives through composed ops)",
+                                     "training stage 2"),
         "warp_bilinear": ("arseg_tpu_torch/csrc/warp_bilinear.cu",
                           "arseg_tpu/ops/pallas_warp.py:115", "bise18"),
         "creff_phase2_argmax": ("arseg_tpu_torch/csrc/creff_phase2_argmax.cu",
