@@ -22,12 +22,22 @@ Serving entry points compute no classifier: ``forward_key`` (HR keyframe:
 logits at the input size + the feature CReFF takes) and
 ``forward_phase1(x, with_aux=False)``. ``forward_phase2_argmax`` of V1 with
 the "local" fusion is K3 (``ops/creff_head_kernel.py``): the fused module,
-``final_conv`` and the argmax in one kernel on the card.
+``final_conv`` and the argmax in one kernel on the card. Its x2 resize of
+the LR feature to full resolution and K3 run over consecutive chunks of
+frames, each under ``CHUNK_ELEMENTS`` elements at full resolution
+(``F.interpolate`` refuses an output of INT_MAX elements or more, which 8
+GOPs of 720x960 at 64 channels pass); below that bound they run once.
+
+Spans (``record_function``, no-ops unless a profiler records):
+``psp.decoder`` around the PSP module and the three upsamples, for the
+keyframe and the LR frames alike; ``psp.lr_up`` around each chunk's resize
+in ``forward_phase2_argmax``.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.attention import get_fusion
@@ -38,6 +48,9 @@ from arseg_tpu_torch.ops import creff_head_kernel, creff_kernel
 from arseg_tpu_torch.ops.resize import adaptive_avg_pool, adaptive_max_pool_11, resize_bilinear
 
 MIDDLE_DIM = {0: None, 1: 64, 2: 512, 3: 64}
+# the most elements a full-resolution tensor of ``forward_phase2_argmax``
+# holds: F.interpolate takes outputs of fewer than INT_MAX = 2^31 - 1
+CHUNK_ELEMENTS = 2**31 - 2
 
 
 def _nhwc(x):
@@ -151,10 +164,11 @@ class PSPNet(nn.Module):
         return self.feats.layer4(class_f), class_f, stem
 
     def _decoder(self, f):
-        y = self.drop_1(self.psp(f))
-        for up in (self.up_1, self.up_2, self.up_3):
-            y = self.drop_2(up(y))
-        return y
+        with record_function("psp.decoder"):
+            y = self.drop_1(self.psp(f))
+            for up in (self.up_1, self.up_2, self.up_3):
+                y = self.drop_2(up(y))
+            return y
 
     def _classifier(self, class_f):
         aux = adaptive_max_pool_11(_nhwc(class_f))
@@ -230,21 +244,40 @@ class PSPNet(nn.Module):
         """int32 class maps [N, H, W] at ref's resolution: argmax of
         final_conv(fusion) (log_softmax and the identity resize skipped). V1
         with the "local" fusion runs K3, which never writes the fused
-        feature; return_fused=True then computes it beside the maps."""
+        feature; return_fused=True then computes it beside the maps. The
+        resize and K3 (and the fused feature) run over ``frame_chunks``."""
         if self.fuse_version == 1 and self.attention_type == "local":
             fa = self.fuse_attention
-            ref_nhwc = _nhwc(ref)
-            lr_up = resize_bilinear(_nhwc(mid), ref_nhwc.shape[1:3], align_corners=True)
+            ref_nhwc, mid_nhwc = _nhwc(ref), _nhwc(mid)
+            hw = ref_nhwc.shape[1:3]
             taps, bias = creff_kernel.pack_qkv(
                 fa.lr_query_conv.weight, fa.lr_query_conv.bias, fa.hr_key_conv.weight,
                 fa.hr_key_conv.bias, fa.hr_value_conv.weight, fa.hr_value_conv.bias)
             fc_w, fc_b = creff_head_kernel.pack_head(self.final_conv.weight,
-                                                     self.final_conv.bias, lr_up.dtype)
-            pred = creff_head_kernel.creff_phase2_argmax(lr_up, ref_nhwc, taps, bias, fc_w, fc_b,
-                                                         self.atten_k, self.atten_k)
+                                                     self.final_conv.bias, mid.dtype)
+            preds, fused = [], []
+            for lo, hi in frame_chunks(ref.shape[0], hw[0] * hw[1] * mid.shape[1]):
+                with record_function("psp.lr_up"):
+                    lr_up = resize_bilinear(mid_nhwc[lo:hi], hw, align_corners=True)
+                preds.append(creff_head_kernel.creff_phase2_argmax(
+                    lr_up, ref_nhwc[lo:hi], taps, bias, fc_w, fc_b, self.atten_k, self.atten_k))
+                if return_fused:
+                    fused.append(fa(ref[lo:hi], mid[lo:hi]))
+            pred = preds[0] if len(preds) == 1 else torch.cat(preds)
             if return_fused:
-                return pred, fa(ref, mid)
+                return pred, fused[0] if len(fused) == 1 else torch.cat(fused)
             return pred
         outs = self.forward_phase2(mid, ref, log_probs=False)
         pred = outs[0].argmax(dim=1).to(torch.int32)
         return (pred, outs[-1]) if return_fused else pred
+
+
+def frame_chunks(n, frame_elements):
+    """[lo, hi) ranges of n frames: one when all n keep the full-resolution
+    tensor (frame_elements a frame) within ``CHUNK_ELEMENTS``, else as few
+    consecutive chunks of near equal size as keep each within it."""
+    per = max(1, CHUNK_ELEMENTS // frame_elements)
+    if n <= per:
+        return [(0, n)]
+    size = -(-n // -(-n // per))
+    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]

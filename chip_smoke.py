@@ -15,8 +15,12 @@ Phases, in order; any failure exits non-zero:
      camvid-bise18's fused head, K1 and K2 at cityscapes-bise18's and
      cityscapes-psp18's (1024x2048 frames, fused at 128x256), K1 and K2 at
      the multi-GOP step's (8 GOPs: K1 over 88 frames, K2 from 8 sources to
-     88 frames), streaming's (one frame), EvalAlterRes's (a batch of 2
-     frames, K2 with one source per frame) and the training step's (a
+     88 frames), camvid-psp18 V1's multi-GOP step (K3 over a chunk of 44
+     frames, K2 from 8 sources to 88 frames at 720x960x64, an output past
+     2^31 elements in one launch; their plain versions run a GOP's frames
+     at a time, which is all the card's memory holds beside them),
+     streaming's (one frame), EvalAlterRes's (a batch of 2 frames, K2 with
+     one source per frame) and the training step's (a
      batch of 16, K2 with one source per frame), K1B (K1's backward) at the
      training step's (hr takes no gradient) and psp18 V2's, and K1 at V1's
      C=64 shape for information
@@ -61,7 +65,10 @@ Phases, in order; any failure exits non-zero:
      in float32 against the card in float32.
   8. multi-GOP: camvid-bise18, 8 GOPs in one gop_step call (720x960), its
      launch counts (K1 and K2 once), its maps against scan_step over the
-     same GOPs in bf16 and in float32, and the ms per frame of both.
+     same GOPs in bf16 and in float32, and the ms per frame of both; then
+     camvid-psp18 V1 the same way, whose 88 frames at 720x960x64 pass 2^31
+     elements, so the x2 resize and K3 run in two chunks of 44 (K3 twice,
+     K2 once).
   9. streaming: camvid-bise18, one GOP as key_step + 11 frame_step calls
      against gop_step (float32), and the median ms per frame_step in bf16
      with its launch counts.
@@ -474,6 +481,13 @@ def k1b_case(gen, dt, n, hw, c, plain_runs, need_ref):
                 flops=lr_up.numel() * (K1B_FLOPS + K1B_REF_FLOPS * need_ref))
 
 
+def _by_frames(fn, n, per=GOP - 1):
+    """torch.cat of fn(lo, hi) over consecutive ranges of at most `per` of
+    n frames: a plain version at a multi-GOP shape run a GOP's frames at a
+    time, since over all n frames it would not fit in the card's memory."""
+    return torch.cat([fn(lo, min(lo + per, n)) for lo in range(0, n, per)])
+
+
 def k2_case(gen, dt, n, hw, c, plain_runs, flow_hw=(H, W), sources=1):
     """K2: `sources` keyframe features [S, *hw, c] warped to n frames, frame
     i reading source i // (n / S) (the dims printed are the output's,
@@ -524,6 +538,42 @@ def k2_case(gen, dt, n, hw, c, plain_runs, flow_hw=(H, W), sources=1):
                 flops=out_numel * 7)
 
 
+def k2_sources_case(gen, dt, n, hw, c, plain_runs, sources):
+    """K2 from `sources` keyframe features [S, *hw, c] to n frames in one
+    launch whose output may pass 2^31 elements (camvid-psp18 V1's multi-GOP
+    step: 8 sources to 88 frames at [720, 960, 64]), with flows drawn
+    uniform(-16, 16) at hw. Held exactly against its plain version and timed
+    beside it a source's frames at a time: neither the plain version over
+    all n frames nor F.grid_sample on a copy of a source per frame fits in
+    the card's memory beside the kernel's output, so there is no library
+    time."""
+    from arseg_tpu_torch.ops import warp_kernel
+
+    src = torch.randn(sources, *hw, c, device="cuda", generator=gen).to(dt)
+    fx = torch.rand(n, *hw, device="cuda", generator=gen) * 32 - 16
+    fy = torch.rand(n, *hw, device="cuda", generator=gen) * 32 - 16
+    per = n // sources
+    k2 = lambda: warp_kernel.warp_bilinear(src, fx, fy)
+
+    def plain(fx, fy):
+        return [warp_kernel.warp_bilinear_plain(src[s:s + 1], fx[s * per:(s + 1) * per],
+                                                fy[s * per:(s + 1) * per])
+                for s in range(sources)]
+
+    errs = []
+    for scale in (1, 40):  # flows and far out-of-image flows (x40)
+        out = warp_kernel.warp_bilinear(src, fx * scale, fy * scale)
+        errs += [check("warp_bilinear", dt, out[s * per:(s + 1) * per], want)
+                 for s, want in enumerate(plain(fx * scale, fy * scale))]
+        del out
+    out_numel = n * hw[0] * hw[1] * c
+    return dict(max_abs_err=max(errs), ms=median_ms(k2),
+                plain_ms=median_ms(lambda: plain(fx, fy), runs=plain_runs), library_ms=None,
+                bytes=src.numel() * src.element_size() + 2 * fx.numel() * 4
+                + out_numel * src.element_size(),
+                flops=out_numel * 7)
+
+
 def check_maps(name, dt, got, logits, shape):
     """A kernel's class map `got` against the argmax of the plain version's
     float32 `logits` [..., K]: shape, range, agreement, and near ties
@@ -559,8 +609,8 @@ def _head_params(gen, c, n_classes, dt):
 
 
 def k3_case(gen, dt, n, hw, c, n_classes):
-    """K3 at [n, *hw, c] against its plain version: class-map agreement and
-    near ties at every disagreement."""
+    """K3 at [n, *hw, c] against its plain version (run a GOP's frames at a
+    time): class-map agreement and near ties at every disagreement."""
     from arseg_tpu_torch.ops import creff_head_kernel, creff_kernel
 
     lr_up = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
@@ -569,9 +619,11 @@ def k3_case(gen, dt, n, hw, c, n_classes):
     fc_w, fc_b = _head_params(gen, c, n_classes, dt)
     args = (lr_up, ref, taps, bias, fc_w, fc_b, 7, 7)
     k3 = lambda: creff_head_kernel.creff_phase2_argmax(*args)
-    p3 = lambda: creff_head_kernel.creff_phase2_argmax_plain(*args)
+    p3 = lambda: _by_frames(lambda lo, hi: creff_head_kernel.creff_phase2_argmax_plain(
+        lr_up[lo:hi], ref[lo:hi], *args[2:]), n)
     # the plain version's logits, to find near ties where the maps differ
-    logits = creff_kernel.creff_qkv_fused_plain(lr_up, ref, taps, bias, 7, 7).float() @ fc_w + fc_b
+    logits = _by_frames(lambda lo, hi: creff_kernel.creff_qkv_fused_plain(
+        lr_up[lo:hi], ref[lo:hi], taps, bias, 7, 7).float() @ fc_w + fc_b, n)
     agree, differ, gap = check_maps("creff_phase2_argmax", dt, k3(), logits, (n, *hw))
     del logits
     elem_bytes = lr_up.element_size()
@@ -866,9 +918,13 @@ def module_edge_phase():
 
 
 def kernel_phase():
+    from arseg_tpu_torch.nn.pspnet import frame_chunks
+
     phase("kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     n = GOP - 1
+    # camvid-psp18 V1's multi-GOP step: K3 over each chunk of its frames
+    (lo, hi), *_ = frame_chunks(MULTI_GOPS * n, H * W * C_PSP)
     stats = {}
     big = (n, (H, W), C_PSP, PLAIN_RUNS_PSP)
     v2 = (n, FEAT_HW, C_PSP_V2, TIMED_RUNS)
@@ -896,6 +952,10 @@ def kernel_phase():
          (MULTI_GOPS * n, FEAT_HW, C, PLAIN_RUNS_PSP)),
         ("warp_bilinear", "bise18 multi-GOP", k2_case,
          (MULTI_GOPS * n, FEAT_HW, C, PLAIN_RUNS_PSP, (H, W), MULTI_GOPS)),
+        ("creff_phase2_argmax", "psp18 V1 multi-GOP chunk", k3_case,
+         (hi - lo, (H, W), C_PSP, N_CLASSES)),
+        ("warp_bilinear", "psp18 V1 multi-GOP", k2_sources_case,
+         (MULTI_GOPS * n, (H, W), C_PSP, PLAIN_RUNS_PSP, MULTI_GOPS)),
         # streaming: a frame a frame_step; EvalAlterRes: a batch of frames,
         # each warped from its own keyframe's feature
         ("creff_qkv_fused", "bise18 streaming", k1_case, (1, FEAT_HW, C, TIMED_RUNS)),
@@ -922,7 +982,7 @@ def kernel_phase():
             dims = [args[0], *args[1], args[2]]
             print(f"-- {name} at the {shape} shape {dims}, {dt}", flush=True)
             stats[(name, shape, dt)] = dict(case(gen, dt, *args), dims=dims)
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
     for (name, shape, dt), s in stats.items():
         _bound(s, dt)
         lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
@@ -1219,17 +1279,21 @@ def _sync_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def multi_gop_phase():
-    """camvid-bise18, B = 8 GOPs in one gop_step call (5-D frames): launch
-    counts (K1 and K2 once for the step), maps against scan_step over the
-    same GOPs in bfloat16 and in float32, and the ms per frame of both."""
+def multi_gop_phase(backend="camvid-bise18", fuse_version=1, expected=None,
+                    name="camvid-bise18 multi-GOP"):
+    """`backend`, B = 8 GOPs in one gop_step call (5-D frames): launch
+    counts (`expected`; by default camvid-bise18's, K1 and K2 once for the
+    step), maps against scan_step over the same GOPs in bfloat16 and in
+    float32, and the ms per frame of both."""
     from arseg_tpu_torch.gop import ARPipeline
     from arseg_tpu_torch.ops import _build
 
     b = MULTI_GOPS
-    phase(f"pipeline: camvid-bise18 multi-GOP, B = {b} GOPs in one gop_step, GOP 12, 720x960")
+    phase(f"pipeline: {name}, B = {b} GOPs in one gop_step, GOP 12, 720x960")
     norm = (CAMVID_MEAN, CAMVID_STD)
-    models = make_models()
+    models = make_models(backend, fuse_version)
+    expected = expected or {"creff_qkv_fused": 1, "warp_bilinear": 1, "creff_phase2_argmax": 0,
+                            "creff_attention": 0, "creff_phase2_upsample_argmax": 0}
     kfs, frs, fxs, fys = (x.cuda() for x in make_clip(b))
     launches = None
     for dt in (torch.bfloat16, torch.float32):
@@ -1241,29 +1305,39 @@ def multi_gop_phase():
             _build.LAUNCHES.clear()
             multi, _ = _sync_ms(lambda: pipe.gop_step(kfs, frs, (fxs, fys)))
             launches = dict(_build.LAUNCHES)
-            expect_launches(launches, {"creff_qkv_fused": 1, "warp_bilinear": 1,
-                                       "creff_phase2_argmax": 0, "creff_attention": 0,
-                                       "creff_phase2_upsample_argmax": 0},
-                            "camvid-bise18 multi-GOP")
+            expect_launches(launches, expected, name)
         t_multi, t_scan = [], []
         for _ in range(3):
             multi, ms = _sync_ms(lambda: pipe.gop_step(kfs, frs, (fxs, fys)))
             t_multi.append(ms)
             scan, ms = _sync_ms(lambda: pipe.scan_step(kfs, frs, fxs, fys))
             t_scan.append(ms)
-        check_maps_range(multi, (b, GOP, H, W), N_CLASSES, "camvid-bise18 multi-GOP")
+        check_maps_range(multi, (b, GOP, H, W), N_CLASSES, name)
         agree = (multi == scan).float().mean().item()
         frames = b * GOP
-        print(f"camvid-bise18 multi-GOP {dt}: {float(np.median(t_multi)) / frames:.4f} ms/frame "
+        print(f"{name} {dt}: {float(np.median(t_multi)) / frames:.4f} ms/frame "
               f"(one gop_step of {b} GOPs, median of 3; all {[round(x, 3) for x in t_multi]} ms) "
               f"against scan_step {float(np.median(t_scan)) / frames:.4f} ms/frame (all "
               f"{[round(x, 3) for x in t_scan]} ms); maps agree {agree:.6f} "
               f"(>= {MULTI_AGREEMENT[dt]}); launches {launches}", flush=True)
         if not agree >= MULTI_AGREEMENT[dt]:
-            raise SystemExit(f"chip_smoke: multi-GOP maps disagree with scan_step in {dt}")
+            raise SystemExit(f"chip_smoke: {name} maps disagree with scan_step in {dt}")
         del pipe, multi, scan
         torch.cuda.empty_cache()
-    return {"camvid-bise18 multi-GOP": launches}
+    return {name: launches}
+
+
+def psp18_multi_gop_phase():
+    """camvid-psp18 V1, 8 GOPs in one gop_step: its 88 LR frames at
+    720x960x64 pass 2^31 elements, so the x2 resize and K3 run over two
+    chunks of 44 frames (K3 twice, K2 once, K1 never), held against
+    scan_step, whose GOPs run K3 once each."""
+    from arseg_tpu_torch.nn.pspnet import frame_chunks
+
+    chunks = len(frame_chunks(MULTI_GOPS * (GOP - 1), H * W * C_PSP))
+    return multi_gop_phase("camvid-psp18", 1, {
+        "creff_phase2_argmax": chunks, "warp_bilinear": 1, "creff_qkv_fused": 0,
+        "creff_attention": 0, "creff_phase2_upsample_argmax": 0}, "camvid-psp18 V1 multi-GOP")
 
 
 def streaming_phase(smi):
@@ -3173,6 +3247,7 @@ def main():
              **timed(lambda: cityscapes_phase("cityscapes-bise18"), "cityscapes-bise18 pipeline"),
              **timed(lambda: cityscapes_phase("cityscapes-psp18"), "cityscapes-psp18 pipeline"),
              **timed(multi_gop_phase, "camvid-bise18 multi-GOP"),
+             **timed(psp18_multi_gop_phase, "camvid-psp18 V1 multi-GOP"),
              **timed(lambda: streaming_phase(smi), "camvid-bise18 streaming"),
              **timed(eval_phase, "eval engines")}
     train_launches, stage2_ms = timed(lambda: training_phase(smi), "training")
