@@ -79,6 +79,25 @@ int arseg_warp_bilinear(void* out, const void* src, const float* fx,
                         const float* fy, int n, int ns, int h, int w, int c,
                         int align_corners, int dtype, void* stream);
 
+// dx = the gradient of F.interpolate(x, (hout, wout), mode "bilinear") with
+// respect to x [n, c, hin, win], for an incoming gradient g of its output:
+// dx[., i, j] = sum_oh Ah[oh, i] * sum_ow Aw[ow, j] * g[., oh, ow], float32
+// sums rounded once to the input type; no atomics. The transposed tables
+// of each axis (rows: th, wh, lh; columns: tw, ww, lw): per input index,
+// the first output index that reads it and how many do ([in][2] int32), and
+// their weights ([in][l] float32, 0 past the run). layout 0: g and dx
+// NCHW-contiguous; layout 1: NHWC-contiguous (channels_last), c a multiple
+// of 16 bytes of the type, g and dx 16-byte aligned. A block owns bh input
+// rows; tile is the output rows staged at a time (layout 0) or the 16-byte
+// vectors of channels a block takes (layout 1); rmax (layout 1) is the most
+// output rows any band of bh input rows reads.
+int arseg_resize_bilinear_backward(void* dx, const void* g, const int* th,
+                                   const float* wh, int lh, const int* tw,
+                                   const float* ww, int lw, int n, int c,
+                                   int hin, int win, int hout, int wout,
+                                   int bh, int rmax, int tile, int layout,
+                                   int dtype, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -24,7 +24,7 @@ from arseg_tpu_torch.nn.attention import get_fusion
 from arseg_tpu_torch.nn.functional import ConvBNReLU, batch_norm, resize_bilinear_nchw
 from arseg_tpu_torch.nn.resnet import ResNet
 from arseg_tpu_torch.ops import creff_kernel, creff_upsample_head_kernel
-from arseg_tpu_torch.ops.resize import resize_bilinear
+from arseg_tpu_torch.ops.resize import interpolate_bilinear, resize_bilinear
 
 # The fused inference head (CReFF + final_conv + x8 upsample + argmax in one
 # kernel, K5: ops/creff_upsample_head_kernel.py), as the JAX package's
@@ -38,8 +38,7 @@ USE_FUSED_UPSAMPLE_HEAD = False
 
 
 def _upsample(x, factor):
-    return F.interpolate(x, size=(x.shape[-2] * factor, x.shape[-1] * factor),
-                         mode="bilinear", align_corners=False)
+    return interpolate_bilinear(x, (x.shape[-2] * factor, x.shape[-1] * factor), False)
 
 
 class AttentionRefinementModule(nn.Module):

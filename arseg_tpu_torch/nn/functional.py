@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from arseg_tpu_torch.ops.resize import interpolate_bilinear
 from arseg_tpu_torch.parallel.group import all_reduce_sum, sync_group
 
 BN_EPS = 1e-5
@@ -35,11 +36,12 @@ BN_MOMENTUM = 0.1
 
 
 def resize_bilinear_nchw(x, hw, align_corners):
-    """Bilinear resize of an NCHW tensor to hw (F.interpolate semantics);
-    the input itself when it already has that size."""
+    """Bilinear resize of an NCHW tensor to hw (F.interpolate semantics,
+    ``ops.resize.interpolate_bilinear``); the input itself when it already
+    has that size."""
     if tuple(x.shape[-2:]) == tuple(hw):
         return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=align_corners)
+    return interpolate_bilinear(x, hw, align_corners)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

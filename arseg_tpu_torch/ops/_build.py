@@ -20,11 +20,12 @@ taps, bias, kh, kw)`` (``d_ref`` may be None) with
 ``creff_phase2_argmax(out, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)``,
 ``creff_attention(out, q, k, v, kh, kw)``,
 ``creff_phase2_upsample_argmax(out, lr_up, ref, taps, bias, fc_w, fc_b,
-kh, kw)`` and ``warp_bilinear(out, src, fx, fy, align_corners)``. Launch
-counts for the wrappers in ``creff_kernel.py``, ``creff_backward_kernel.py``,
-``creff_head_kernel.py``,
-``creff_attention_kernel.py``, ``creff_upsample_head_kernel.py`` and
-``warp_kernel.py`` live in ``LAUNCHES``.
+kh, kw)``, ``warp_bilinear(out, src, fx, fy, align_corners)`` and
+``resize_bilinear_backward(dx, g, th, wh, tw, ww, bh, rmax, tile, layout)``.
+Launch counts for the wrappers in ``creff_kernel.py``,
+``creff_backward_kernel.py``, ``creff_head_kernel.py``,
+``creff_attention_kernel.py``, ``creff_upsample_head_kernel.py``,
+``warp_kernel.py`` and ``resize_kernel.py`` live in ``LAUNCHES``.
 """
 
 import collections
@@ -43,7 +44,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES = ("creff_qkv_fused.cu", "creff_qkv_fused_backward.cu", "creff_phase2_argmax.cu",
-                  "creff_attention.cu", "creff_phase2_upsample_argmax.cu", "warp_bilinear.cu")
+                  "creff_attention.cu", "creff_phase2_upsample_argmax.cu", "warp_bilinear.cu",
+                  "resize_bilinear_backward.cu")
 HEADERS = ("kernels.h", "creff_module.cuh", "creff_module_mma.cuh")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17"]
@@ -139,6 +141,9 @@ def _bind(lib):
     lib.arseg_creff_phase2_upsample_argmax.restype = i
     lib.arseg_warp_bilinear.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.arseg_warp_bilinear.restype = i
+    lib.arseg_resize_bilinear_backward.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i, i, i, i,
+                                                   i, i, i, p]
+    lib.arseg_resize_bilinear_backward.restype = i
 
     def code(t):
         return 1 if t.dtype == torch.bfloat16 else 0
@@ -196,6 +201,13 @@ def _bind(lib):
                                       int(align_corners), code(out), stream(out)),
               "warp_bilinear")
 
+    def resize_bilinear_backward(dx, g, th, wh, tw, ww, bh, rmax, tile, layout):
+        n, c, hin, win = dx.shape
+        check(lib.arseg_resize_bilinear_backward(
+            dx.data_ptr(), g.data_ptr(), th.data_ptr(), wh.data_ptr(), wh.shape[1], tw.data_ptr(),
+            ww.data_ptr(), ww.shape[1], n, c, hin, win, g.shape[2], g.shape[3], bh, rmax, tile,
+            layout, code(g), stream(dx)), "resize_bilinear_backward")
+
     return types.SimpleNamespace(creff_qkv_fused=creff_qkv_fused,
                                  creff_qkv_fused_backward=creff_qkv_fused_backward,
                                  creff_qkv_fused_backward_workspace=(
@@ -203,4 +215,5 @@ def _bind(lib):
                                  creff_phase2_argmax=creff_phase2_argmax,
                                  creff_attention=creff_attention,
                                  creff_phase2_upsample_argmax=creff_phase2_upsample_argmax,
-                                 warp_bilinear=warp_bilinear, lib=lib)
+                                 warp_bilinear=warp_bilinear,
+                                 resize_bilinear_backward=resize_bilinear_backward, lib=lib)

@@ -22,21 +22,22 @@ import torch.nn.functional as F
 
 
 @lru_cache(maxsize=None)
-def _linear_gather(in_size: int, out_size: int, align_corners: bool):
+def _linear_gather(in_size: int, out_size: int, align_corners: bool, dtype=np.float32):
     """(i0, i1, w) per output index for 1-D linear resampling; source
-    coordinates are computed in float32, as torch does."""
-    i = np.arange(out_size, dtype=np.float32)
+    coordinates are computed in float32, as torch does (in float64 with
+    ``dtype=np.float64``, as torch does for float64 tensors)."""
+    i = np.arange(out_size, dtype=dtype)
     if align_corners:
         if out_size == 1:
             src = np.zeros_like(i)
         else:
-            scale = np.float32(in_size - 1) / np.float32(out_size - 1)
+            scale = dtype(in_size - 1) / dtype(out_size - 1)
             src = i * scale
     else:
-        scale = np.float32(in_size) / np.float32(out_size)
-        src = np.maximum((i + np.float32(0.5)) * scale - np.float32(0.5), np.float32(0))
+        scale = dtype(in_size) / dtype(out_size)
+        src = np.maximum((i + dtype(0.5)) * scale - dtype(0.5), dtype(0))
     x0 = np.floor(src).astype(np.int64)
-    w = (src - x0).astype(np.float32)
+    w = (src - x0).astype(dtype)
     x0 = np.minimum(x0, in_size - 1)
     x1 = np.minimum(x0 + 1, in_size - 1)
     return x0, x1, w
@@ -117,6 +118,21 @@ def _from_nchw(y, lead):
     return y.reshape(tuple(lead) + tuple(y.shape[1:]))
 
 
+def interpolate_bilinear(x, size, align_corners: bool):
+    """F.interpolate(x, size, mode='bilinear', align_corners=...) of an NCHW
+    tensor: the same values. When autograd records the call (training), it
+    goes through ``resize_kernel.BilinearResize``, whose backward is the
+    gather form (a kernel on the card) in place of PyTorch's atomic scatter;
+    otherwise (serving, eval, no gradient) it is F.interpolate itself."""
+    size = (int(size[0]), int(size[1]))
+    if torch.is_grad_enabled() and x.requires_grad:
+        # imported here: resize_kernel builds its tables from this module's
+        from arseg_tpu_torch.ops.resize_kernel import BilinearResize
+
+        return BilinearResize.apply(x, size, align_corners)
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=align_corners)
+
+
 def resize_bilinear(x, out_hw, align_corners: bool):
     """Bilinear resize of an NHWC (any leading batch) tensor, matching
     F.interpolate(mode='bilinear', align_corners=...)."""
@@ -124,8 +140,7 @@ def resize_bilinear(x, out_hw, align_corners: bool):
     if tuple(x.shape[-3:-1]) == (oh, ow):
         return x
     y, lead = _as_nchw(x)
-    y = F.interpolate(y, size=(oh, ow), mode="bilinear", align_corners=align_corners)
-    return _from_nchw(y, lead)
+    return _from_nchw(interpolate_bilinear(y, (oh, ow), align_corners), lead)
 
 
 def resize_nearest(x, out_hw):

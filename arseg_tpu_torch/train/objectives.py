@@ -28,9 +28,9 @@ losses). ``train/step.py`` adds ``train.step``, ``train.backward`` and
 """
 
 import torch
-import torch.nn.functional as F
 from torch.profiler import record_function
 
+from arseg_tpu_torch.ops.resize import interpolate_bilinear
 from arseg_tpu_torch.ops.warp import scale_and_resize_flow, warp_feature
 from arseg_tpu_torch.train import losses as L
 
@@ -43,7 +43,7 @@ def _resize(x, hw):
     """Bilinear, align_corners=True; x itself when already at hw."""
     if tuple(x.shape[-2:]) == tuple(hw):
         return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=True)
+    return interpolate_bilinear(x, hw, True)
 
 
 def _teacher_feat(teacher, x):

@@ -40,7 +40,12 @@ Phases, in order; any failure exits non-zero:
      shapes (sizes no multiple of the tile or of K5's 14-pixel interior, a
      single row or column, n = 1, C of 16, 64 and 512, windows 3, 5 and 7,
      12 and 19 classes), and K3 and K5 with a tie of two classes and with
-     every logit below zero, printed with its seconds.
+     every logit below zero, printed with its seconds. The gather backward
+     of bilinear resize (ops/resize_kernel.py) at the shapes of an FST
+     stage-2 step at batch 16 (the heads' x8 and x16, the OHEM resize, K1's
+     lr resize, the context and spatial paths'), in the layout of its
+     incoming gradient there, against its plain version, beside PyTorch's
+     own backward (aten upsample_bilinear2d_backward) as library_ms.
   4. camvid-bise18 AR 0.5x, GOP 12, 720x960, bf16, full width, random
      seeded weights: scan_step over 3 GOPs of uint8 frames, with the launch
      counts of every kernel read around that run; then one GOP on the CPU
@@ -82,7 +87,9 @@ Phases, in order; any failure exits non-zero:
      camvid policy's 720x960 crop, LR 0.5x, the teacher the fused class in
      eval mode, the student's final conv copied from it and frozen: 2
      stage-1 then 4 stage-2 Adam steps in bf16 at batch 16 on one repeated
-     batch (K1, K1B and K2 never in stage 1, once per stage-2 step; each
+     batch (K1, K1B and K2 never in stage 1, once per stage-2 step; the
+     gather backward of bilinear resize 9 times a stage-1 step and 8 times
+     a stage-2 step, once for each resize that takes a gradient; each
      loss finite, the 4th stage-2 loss below the 1st; float32 master
      parameters, optimizer state and BN statistics; the frozen conv equal
      to the teacher's; the median ms per step of each stage after its
@@ -92,7 +99,8 @@ Phases, in order; any failure exits non-zero:
      against the CPU (the loss within 1e-4, each
      gradient within the larger of 1e-3 and 4 x its float32 error against
      the CPU in float64, the BN running statistics within 1e-4);
-     TrainLoop.run_epoch over 3 in-memory batches with its launch counts,
+     TrainLoop.run_epoch over 3 in-memory batches with its launch counts
+     (the resize backward 8 times a batch),
      then EvalAlterRes validation whose histogram counts every scored
      pixel; a checkpoint saved and loaded into a fresh model and
      optimizer, every tensor bit-equal.
@@ -112,7 +120,7 @@ Phases, in order; any failure exits non-zero:
      gloo ranks spawned on the same card (NCCL refuses two ranks on one
      device), each building its group from the device "cuda", the kernels
      built before the spawn: the sync-BN stage-2 step
-     of camvid-bise18 at 720x960, global batch 16 (8 a rank), bf16, 3 Adam
+     of camvid-bise18 at 720x960, global batch 16 (8 a rank), bf16, 5 Adam
      steps (K1 and K2 once a step on each rank; the ranks' losses equal,
      finite, the last below the first); a float32 sync step at 128x160,
      global batch 8, against the one-rank step on the card (loss and BN
@@ -210,6 +218,7 @@ Every phase prints its seconds.
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -261,6 +270,11 @@ TOL = {
     # (a unit of 2^-8 at a few positions), d lr_up and d ref rounded once
     "creff_qkv_fused_backward": {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6},
 }
+# kernel against plain version, relative to max |plain| (as the card tests
+# of tests/test_torch_resize_backward.py): float32 sums of the same products
+# in another order; bfloat16 both round float32 sums once, so an element
+# may differ by one unit in its last place (2^-7 of it)
+TOL["resize_bilinear_backward"] = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # kernels that repeat their plain version's arithmetic step by step: besides
 # the tolerance, max |kernel - plain| must be 0
 EXACT = ("warp_bilinear",)
@@ -286,6 +300,25 @@ WARP_EDGE_C = (8, 64, 136, 256, 512)
 TRAIN_BATCH, TRAIN_HW = 16, (H, W)  # the camvid policy's crop, the reference's batch
 TRAIN_STEPS = (2, 4)  # stage-1 and stage-2 steps on one repeated batch
 TRAIN_LR = 1e-3  # the trainers' start_lr
+# the resizes one FST step of camvid-bise18 at 720x960 takes a gradient
+# through (tests/test_torch_resize_backward.py STEP_RESIZES): 9 in stage 1
+# (the student in normal mode, its feature resized to the teacher's), 8 in
+# stage 2; each is one launch of the gather backward
+RESIZE_LAUNCHES = {1: 9, 2: 8}
+# (shape key, input [N, C, H, W], output size, align_corners, channels_last):
+# the resizes of a stage-2 step at batch 16, in the layout their incoming
+# gradient has there (the OHEM resize runs twice, at the same shape)
+RESIZE_CASES = [
+    ("training stage 2 main head x8", (TRAIN_BATCH, N_CLASSES, 90, 120), (H, W), False, False),
+    ("training stage 2 conv_out16 x8", (TRAIN_BATCH, N_CLASSES, 46, 60), (368, 480), False,
+     False),
+    ("training stage 2 OHEM", (TRAIN_BATCH, N_CLASSES, 368, 480), (H, W), True, False),
+    ("training stage 2 conv_out32 x16", (TRAIN_BATCH, N_CLASSES, 23, 30), (368, 480), False,
+     False),
+    ("training stage 2 K1 lr", (TRAIN_BATCH, C, 46, 60), FEAT_HW, True, True),
+    ("training stage 2 context path", (TRAIN_BATCH, 128, 24, 30), (23, 30), True, True),
+    ("training stage 2 spatial path", (TRAIN_BATCH, 128, 45, 60), (46, 60), True, True),
+]
 PARITY_HW, PARITY_BATCH = (128, 160), 2
 # one step on the card (float32) against the CPU: the loss's relative
 # difference, the BN running statistics after an SGD step (relative to
@@ -298,8 +331,12 @@ PARITY_HW, PARITY_BATCH = (128, 160), 2
 # that measured error of the same tensor.
 TRAIN_LOSS_TOL, TRAIN_BN_TOL, TRAIN_GRAD_TOL, GRAD_ERR_FACTOR = 1e-4, 1e-4, 1e-3, 4.0
 TRAIN_EPOCH_BATCHES, TRAIN_EPOCH_BATCH, TRAIN_VAL_BATCHES = 3, 4, 2
-# data parallel: two gloo ranks on the one card
-DP_WORLD, DP_STEPS, DP_PARITY_BATCH, DP_STREAMS, DP_LOOP_BATCHES = 2, 3, 8, 2, 2
+# data parallel: two gloo ranks on the one card. DP_STEPS fresh Adam steps
+# of the bf16 sync-BN step must lower the loss: from these models on this
+# batch the loss of the float32 step itself rises through step 3 (8.5250,
+# 8.5289, 8.5452) and falls from step 4 (8.3052, 8.0752), so 3 steps passed
+# or failed on bf16 rounding alone
+DP_WORLD, DP_STEPS, DP_PARITY_BATCH, DP_STREAMS, DP_LOOP_BATCHES = 2, 5, 8, 2, 2
 DP_TIMEOUT = 480  # seconds the spawned ranks may take together
 # one-rank group against the one-process step, which is the same code: the
 # backward's float32 atomic adds (bilinear upsampling's, cuDNN's) run in
@@ -479,6 +516,44 @@ def k1b_case(gen, dt, n, hw, c, plain_runs, need_ref):
     return dict(max_abs_err=err, ms=median_ms(run), plain_ms=median_ms(plain, runs=plain_runs),
                 library_ms=None, bytes=(4 + need_ref) * lr_up.numel() * lr_up.element_size(),
                 flops=lr_up.numel() * (K1B_FLOPS + K1B_REF_FLOPS * need_ref))
+
+
+def resize_case(gen, dt, shape, size, align, channels_last):
+    """The gather backward of bilinear resize for an input [N, C, H, W] and
+    an incoming gradient at `size`, against its plain version, beside
+    PyTorch's own backward (the aten op autograd runs: atomic adds in the
+    input type) as the library. Its bound: the gradient read and the
+    input's gradient written, once each."""
+    from arseg_tpu_torch.ops import resize_kernel
+
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    g = torch.randn(shape[:2] + size, device="cuda", generator=gen).to(dt)
+    g = g.contiguous(memory_format=fmt)
+    run = lambda: resize_kernel.resize_bilinear_backward(g, shape[2:], align)
+    plain = lambda: resize_kernel.resize_bilinear_backward_plain(g, shape[2:], align)
+    lib = lambda: torch.ops.aten.upsample_bilinear2d_backward(g, list(size), list(shape), align,
+                                                              None, None)
+    err = check("resize_bilinear_backward", dt, run(), plain())
+    return dict(max_abs_err=err, ms=median_ms(run), plain_ms=median_ms(plain, runs=PLAIN_RUNS_PSP),
+                library_ms=median_ms(lib, runs=5),
+                bytes=(g.numel() + math.prod(shape)) * g.element_size(),
+                flops=4 * g.numel())  # two multiply-adds an element of g, along W
+
+
+def resize_backward_phase():
+    """The gather backward of bilinear resize at a stage-2 step's shapes,
+    in float32 and bfloat16: {(name, shape key, dtype): stats}."""
+    phase("the gather backward of bilinear resize at the FST step's shapes")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    stats = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for key, shape, size, align, nhwc in RESIZE_CASES:
+            print(f"-- resize_bilinear_backward at the {key} shape {list(shape)} -> {list(size)} "
+                  f"align_corners={align} {'channels_last' if nhwc else 'NCHW'}, {dt}", flush=True)
+            stats[("resize_bilinear_backward", key, dt)] = dict(
+                resize_case(gen, dt, shape, size, align, nhwc), dims=[*shape, *size])
+            torch.cuda.empty_cache()
+    return stats
 
 
 def _by_frames(fn, n, per=GOP - 1):
@@ -983,6 +1058,7 @@ def kernel_phase():
             print(f"-- {name} at the {shape} shape {dims}, {dt}", flush=True)
             stats[(name, shape, dt)] = dict(case(gen, dt, *args), dims=dims)
             torch.cuda.empty_cache()
+    stats.update(resize_backward_phase())
     for (name, shape, dt), s in stats.items():
         _bound(s, dt)
         lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
@@ -1293,7 +1369,8 @@ def multi_gop_phase(backend="camvid-bise18", fuse_version=1, expected=None,
     norm = (CAMVID_MEAN, CAMVID_STD)
     models = make_models(backend, fuse_version)
     expected = expected or {"creff_qkv_fused": 1, "warp_bilinear": 1, "creff_phase2_argmax": 0,
-                            "creff_attention": 0, "creff_phase2_upsample_argmax": 0}
+                            "creff_attention": 0, "creff_phase2_upsample_argmax": 0,
+                            "resize_bilinear_backward": 0}
     kfs, frs, fxs, fys = (x.cuda() for x in make_clip(b))
     launches = None
     for dt in (torch.bfloat16, torch.float32):
@@ -1337,7 +1414,8 @@ def psp18_multi_gop_phase():
     chunks = len(frame_chunks(MULTI_GOPS * (GOP - 1), H * W * C_PSP))
     return multi_gop_phase("camvid-psp18", 1, {
         "creff_phase2_argmax": chunks, "warp_bilinear": 1, "creff_qkv_fused": 0,
-        "creff_attention": 0, "creff_phase2_upsample_argmax": 0}, "camvid-psp18 V1 multi-GOP")
+        "creff_attention": 0, "creff_phase2_upsample_argmax": 0, "resize_bilinear_backward": 0},
+        "camvid-psp18 V1 multi-GOP")
 
 
 def streaming_phase(smi):
@@ -1570,10 +1648,14 @@ def train_steps_phase(smi):
               f"{launches[stage]}", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expect_launches(launches[1], {"creff_qkv_fused": 0, "creff_qkv_fused_backward": 0,
-                                  "warp_bilinear": 0}, "training stage 1")
+                                  "warp_bilinear": 0,
+                                  "resize_bilinear_backward": RESIZE_LAUNCHES[1] * TRAIN_STEPS[0]},
+                    "training stage 1")
     expect_launches(launches[2], {"creff_qkv_fused": TRAIN_STEPS[1],
                                   "creff_qkv_fused_backward": TRAIN_STEPS[1],
-                                  "warp_bilinear": TRAIN_STEPS[1]}, "training stage 2")
+                                  "warp_bilinear": TRAIN_STEPS[1],
+                                  "resize_bilinear_backward": RESIZE_LAUNCHES[2] * TRAIN_STEPS[1]},
+                    "training stage 2")
     if not all(np.isfinite(losses[1] + losses[2])):
         raise SystemExit("chip_smoke: a training loss is not finite")
     if not losses[2][-1] < losses[2][0]:
@@ -1712,7 +1794,9 @@ def train_loop_phase():
     launches = dict(_build.LAUNCHES)
     expect_launches(launches, {"creff_qkv_fused": TRAIN_EPOCH_BATCHES,
                                "creff_qkv_fused_backward": TRAIN_EPOCH_BATCHES,
-                               "warp_bilinear": TRAIN_EPOCH_BATCHES}, "TrainLoop")
+                               "warp_bilinear": TRAIN_EPOCH_BATCHES,
+                               "resize_bilinear_backward":
+                                   RESIZE_LAUNCHES[2] * TRAIN_EPOCH_BATCHES}, "TrainLoop")
     if not np.isfinite(mean_loss) or not student.training:
         raise SystemExit("chip_smoke: TrainLoop.run_epoch failed")
     val = make_eval_batches(TRAIN_VAL_BATCHES, EVAL_BATCH, (H, W), seed=5)
@@ -3275,6 +3359,9 @@ def main():
         "creff_phase2_upsample_argmax": ("arseg_tpu_torch/csrc/creff_phase2_upsample_argmax.cu",
                                          "arseg_tpu/ops/pallas_creff.py:648",
                                          "bise18 fused head"),
+        "resize_bilinear_backward": ("arseg_tpu_torch/csrc/resize_bilinear_backward.cu",
+                                     "none (the JAX package leaves this backward to XLA)",
+                                     "training stage 2 main head x8"),
     }
     keys = ("dims", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     for name, (source, replaces, shape) in sources.items():
