@@ -93,11 +93,16 @@ class LocalAttention(_Fusion):
         if with_value:
             self.hr_value_conv = _conv3(c, c, g)
 
+    def qkv_weights(self):
+        """The Q, K, V convs' weights and biases in ``pack_qkv``'s order:
+        (q_w, q_b, k_w, k_b, v_w, v_b)."""
+        convs = (self.lr_query_conv, self.hr_key_conv, self.hr_value_conv)
+        return tuple(t for conv in convs for t in (conv.weight, conv.bias))
+
     def forward(self, hr, lr):
         if self.fused_module:
-            convs = (self.lr_query_conv, self.hr_key_conv, self.hr_value_conv)
-            wb = [t for conv in convs for t in (conv.weight, conv.bias)]
-            out = creff_local_module_resize(_nhwc(lr), _nhwc(hr), *wb, self.k, self.k)
+            out = creff_local_module_resize(_nhwc(lr), _nhwc(hr), *self.qkv_weights(), self.k,
+                                            self.k)
             return _nchw(out)
         lr_up = _up(lr, hr.shape[-2:])
         q = self.lr_query_conv(lr_up)

@@ -214,9 +214,7 @@ class BiSeNetV1(nn.Module):
             ref_nhwc = ref.permute(0, 2, 3, 1)
             lr_up = resize_bilinear(mid.permute(0, 2, 3, 1), ref_nhwc.shape[1:3],
                                     align_corners=True)
-            taps, bias = creff_kernel.pack_qkv(
-                fa.lr_query_conv.weight, fa.lr_query_conv.bias, fa.hr_key_conv.weight,
-                fa.hr_key_conv.bias, fa.hr_value_conv.weight, fa.hr_value_conv.bias)
+            taps, bias = creff_kernel.pack_qkv(*fa.qkv_weights())
             fc_w, fc_b = creff_upsample_head_kernel.pack_upsample_head(
                 self.final_conv.weight, self.final_conv.bias, lr_up.dtype)
             pred = creff_upsample_head_kernel.creff_phase2_upsample_argmax(

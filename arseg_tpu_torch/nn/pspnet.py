@@ -250,9 +250,7 @@ class PSPNet(nn.Module):
             fa = self.fuse_attention
             ref_nhwc, mid_nhwc = _nhwc(ref), _nhwc(mid)
             hw = ref_nhwc.shape[1:3]
-            taps, bias = creff_kernel.pack_qkv(
-                fa.lr_query_conv.weight, fa.lr_query_conv.bias, fa.hr_key_conv.weight,
-                fa.hr_key_conv.bias, fa.hr_value_conv.weight, fa.hr_value_conv.bias)
+            taps, bias = creff_kernel.pack_qkv(*fa.qkv_weights())
             fc_w, fc_b = creff_head_kernel.pack_head(self.final_conv.weight,
                                                      self.final_conv.bias, mid.dtype)
             preds, fused = [], []

@@ -24,7 +24,7 @@ start on 16 bytes.
 import torch
 
 from arseg_tpu_torch.ops import _build
-from arseg_tpu_torch.ops.creff_kernel import CHANNEL_CHUNK
+from arseg_tpu_torch.ops.creff_kernel import check_inputs, check_shape
 
 NAME = "creff_attention"
 
@@ -43,26 +43,15 @@ def creff_attention_plain(q, k, v, kh, kw):
 def creff_attention(q, k, v, kh, kw):
     """q, k, v [N, H, W, C] of one shape (float32 or bfloat16) -> [N, H, W, C].
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    if q.dim() != 4 or not q.shape == k.shape == v.shape:
-        raise ValueError(f"{NAME} takes q, k, v of one NHWC shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    qkv = dict(q=q, k=k, v=v)
+    check_shape(NAME, qkv)
     if q.device.type == "cpu":
         return creff_attention_plain(q, k, v, kh, kw)
-    if not q.dtype == k.dtype == v.dtype or q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{NAME} takes float32 or bfloat16 inputs of one dtype")
-    c = q.shape[-1]
-    if c % CHANNEL_CHUNK:
-        raise ValueError(f"{NAME} needs C % {CHANNEL_CHUNK} == 0, got C={c}")
-    if kh != kw or kh not in (3, 5, 7):
-        raise ValueError(f"{NAME} is built for square 3, 5 or 7 windows, got {kh}x{kw}")
-    devs = {t.device for t in (q, k, v)}
-    if len(devs) != 1:
-        raise ValueError(f"{NAME} inputs must be on one device, got {devs}")
+    check_inputs(NAME, qkv, kh, kw)
     q, k, v = (t.contiguous() for t in (q, k, v))
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{NAME} in bfloat16 needs q, k, v whose data starts on 16 bytes "
                          "(16-byte copies); got a view at an offset")
     out = torch.empty_like(q)
-    _build.kernels().creff_attention(out, q, k, v, int(kh), int(kw))
-    _build.LAUNCHES[NAME] += 1
+    _build.launch(NAME, out, q, k, v, *q.shape, kh, kw, q.dtype)
     return out

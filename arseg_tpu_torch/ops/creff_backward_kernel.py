@@ -21,11 +21,13 @@ launches the kernel for a CUDA tensor, raising on what the kernel does not
 take.
 """
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from arseg_tpu_torch.ops import _build
-from arseg_tpu_torch.ops.creff_kernel import CHANNEL_CHUNK, _dw3, aligned16
+from arseg_tpu_torch.ops.creff_kernel import _dw3, aligned16, check_inputs
 
 NAME = "creff_qkv_fused_backward"
 
@@ -93,32 +95,20 @@ def creff_qkv_fused_backward(lr_up, ref, g, taps, bias, kh, kw, need_ref=True):
     kernel."""
     if lr_up.device.type == "cpu":
         return creff_qkv_fused_backward_plain(lr_up, ref, g, taps, bias, kh, kw, need_ref)
-    if lr_up.dim() != 4 or lr_up.shape != ref.shape or lr_up.shape != g.shape:
-        raise ValueError(f"lr_up {tuple(lr_up.shape)}, ref {tuple(ref.shape)} and g "
-                         f"{tuple(g.shape)} must be one NHWC shape")
-    if lr_up.dtype != ref.dtype or lr_up.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{NAME} takes float32 or bfloat16 inputs of one dtype")
+    g = g.to(lr_up.dtype)
+    check_inputs(NAME, dict(lr_up=lr_up, ref=ref, g=g), kh, kw, taps, bias)
+    lr_up, ref, g = aligned16(lr_up), aligned16(ref), aligned16(g)
     n, h, w, c = lr_up.shape
-    if c % CHANNEL_CHUNK:
-        raise ValueError(f"{NAME} needs C % {CHANNEL_CHUNK} == 0, got C={c}")
-    if kh != kw or kh not in (3, 5, 7):
-        raise ValueError(f"{NAME} is built for square 3, 5 or 7 windows, got {kh}x{kw}")
-    if tuple(taps.shape) != (3, 9, c) or tuple(bias.shape) != (3, c):
-        raise ValueError("taps/bias must come from pack_qkv")
-    devs = {t.device for t in (lr_up, ref, g, taps, bias)}
-    if len(devs) != 1:
-        raise ValueError(f"{NAME} inputs must be on one device, got {devs}")
-    lr_up, ref, g = aligned16(lr_up), aligned16(ref), aligned16(g.to(lr_up.dtype))
-    taps, bias = aligned16(taps.float()), aligned16(bias.float())
-    lib = _build.kernels()
     d_lr = torch.empty_like(lr_up)
     d_ref = torch.empty_like(ref) if need_ref else None
     d_tb = torch.empty(3, 10, c, dtype=torch.float32, device=lr_up.device)
-    ws = torch.empty(lib.creff_qkv_fused_backward_workspace(lr_up, int(kh)), dtype=torch.uint8,
-                     device=lr_up.device)
-    lib.creff_qkv_fused_backward(d_lr, d_ref, d_tb, ws, lr_up, ref, g, taps, bias, int(kh),
-                                 int(kw))
-    _build.LAUNCHES[NAME] += 1
+    # the one launcher function of another form: it returns a size_t and takes no stream
+    size = _build.library().arseg_creff_qkv_fused_backward_workspace
+    size.restype = ctypes.c_size_t
+    ws = torch.empty(size(n, h, w, c, int(kh), _build.DTYPE_CODES[lr_up.dtype]),
+                     dtype=torch.uint8, device=lr_up.device)
+    _build.launch(NAME, d_lr, d_ref, d_tb, ws, lr_up, ref, g, aligned16(taps.float()),
+                  aligned16(bias.float()), n, h, w, c, kh, kw, lr_up.dtype)
     return d_lr, d_ref, d_tb
 
 

@@ -20,10 +20,10 @@ take.
 import torch
 
 from arseg_tpu_torch.ops import _build
-from arseg_tpu_torch.ops.creff_kernel import CHANNEL_CHUNK, aligned16, creff_qkv_fused_plain
+from arseg_tpu_torch.ops.creff_kernel import aligned16, check_inputs, creff_qkv_fused_plain
 
 NAME = "creff_phase2_argmax"
-MAX_CLASSES = 19  # csrc/creff_phase2_argmax.cu MAX_CLASSES
+MAX_CLASSES = 19  # csrc/creff_phase2_argmax.cu and creff_phase2_upsample_argmax.cu
 
 
 def pack_head(weight, bias, dtype):
@@ -51,35 +51,18 @@ def creff_phase2_argmax(lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
     kernel."""
     if lr_up.device.type == "cpu":
         return creff_phase2_argmax_plain(lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)
-    lr_up, ref, args = check_head_args(NAME, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)
-    out = torch.empty(lr_up.shape[:3], dtype=torch.int32, device=lr_up.device)
-    _build.kernels().creff_phase2_argmax(out, lr_up, ref, *args, int(kh), int(kw))
-    _build.LAUNCHES[NAME] += 1
-    return out
+    return launch_head(NAME, 1, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)
 
 
-def check_head_args(name, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
-    """Raise on what the module + head kernels (K3, K5) do not take; else
-    (lr_up, ref, [taps, bias, fc_w, fc_b]) contiguous and 16-byte aligned,
-    the last four in float32."""
-    if lr_up.dim() != 4 or lr_up.shape != ref.shape:
-        raise ValueError(f"lr_up {tuple(lr_up.shape)} and ref {tuple(ref.shape)} must be one NHWC shape")
-    if lr_up.dtype != ref.dtype or lr_up.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} takes float32 or bfloat16 inputs of one dtype")
-    c = lr_up.shape[-1]
-    if c % CHANNEL_CHUNK:
-        raise ValueError(f"{name} needs C % {CHANNEL_CHUNK} == 0, got C={c}")
-    if kh != kw or kh not in (3, 5, 7):
-        raise ValueError(f"{name} is built for square 3, 5 or 7 windows, got {kh}x{kw}")
-    if tuple(taps.shape) != (3, 9, c) or tuple(bias.shape) != (3, c):
-        raise ValueError("taps/bias must come from pack_qkv")
-    if fc_w.dim() != 2 or fc_w.shape[0] != c or tuple(fc_b.shape) != (fc_w.shape[1],):
-        raise ValueError(f"fc_w must be [C={c}, K] and fc_b [K], got {tuple(fc_w.shape)}, "
-                         f"{tuple(fc_b.shape)}")
+def launch_head(name, up, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
+    """Launch a module + head kernel (K3 with ``up`` 1, K5 with ``up`` 8)
+    after the CReFF checks and the class count -> int32 [N, up*h, up*w]."""
+    check_inputs(name, dict(lr_up=lr_up, ref=ref), kh, kw, taps, bias, fc_w, fc_b)
     if not 1 <= fc_w.shape[1] <= MAX_CLASSES:
         raise ValueError(f"{name} takes 1 to {MAX_CLASSES} classes, got {fc_w.shape[1]}")
-    devs = {t.device for t in (lr_up, ref, taps, bias, fc_w, fc_b)}
-    if len(devs) != 1:
-        raise ValueError(f"{name} inputs must be on one device, got {devs}")
-    args = [aligned16(x.float()) for x in (taps, bias, fc_w, fc_b)]
-    return aligned16(lr_up), aligned16(ref), args
+    n, h, w, c = lr_up.shape
+    out = torch.empty((n, up * h, up * w), dtype=torch.int32, device=lr_up.device)
+    _build.launch(name, out, aligned16(lr_up), aligned16(ref),
+                  *(aligned16(x.float()) for x in (taps, bias, fc_w, fc_b)),
+                  n, h, w, c, fc_w.shape[1], kh, kw, lr_up.dtype)
+    return out

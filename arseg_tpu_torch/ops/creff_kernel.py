@@ -11,6 +11,8 @@ bounds the kernel and how it is laid out.
 
 ``creff_qkv_fused`` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, raising on what the kernel does not take.
+``check_inputs`` is that check for every CReFF kernel (K1, K1B, K3, K4,
+K5).
 """
 
 import torch
@@ -27,6 +29,40 @@ def aligned16(x):
     bfloat16 body stages its halos, taps and biases with 16-byte copies)."""
     x = x.contiguous()
     return x.clone() if x.data_ptr() % 16 else x
+
+
+def check_shape(name, tensors):
+    """Raise unless ``tensors`` (name -> tensor) are of one NHWC shape."""
+    x = next(iter(tensors.values()))
+    if x.dim() != 4 or any(t.shape != x.shape for t in tensors.values()):
+        shapes = ", ".join(f"{k} {tuple(t.shape)}" for k, t in tensors.items())
+        raise ValueError(f"{name}: {shapes} must be one NHWC shape")
+
+
+def check_inputs(name, tensors, kh, kw, taps=None, bias=None, fc_w=None, fc_b=None):
+    """Raise on what the CReFF kernels (K1, K1B, K3, K4, K5) do not take:
+    ``tensors`` (name -> tensor) of one NHWC shape and one dtype, float32 or
+    bfloat16, with C a multiple of ``CHANNEL_CHUNK``; a square 3, 5 or 7
+    window; ``taps`` and ``bias`` as ``pack_qkv`` shapes them and a head's
+    ``fc_w`` [C, K] and ``fc_b`` [K], where given; all on one device."""
+    check_shape(name, tensors)
+    xs = list(tensors.values())
+    dt, c = xs[0].dtype, xs[0].shape[-1]
+    if any(t.dtype != dt for t in xs) or dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16 inputs of one dtype")
+    if c % CHANNEL_CHUNK:
+        raise ValueError(f"{name} needs C % {CHANNEL_CHUNK} == 0, got C={c}")
+    if kh != kw or kh not in (3, 5, 7):
+        raise ValueError(f"{name} is built for square 3, 5 or 7 windows, got {kh}x{kw}")
+    if taps is not None and (tuple(taps.shape) != (3, 9, c) or tuple(bias.shape) != (3, c)):
+        raise ValueError("taps/bias must come from pack_qkv")
+    if fc_w is not None and (fc_w.dim() != 2 or fc_w.shape[0] != c
+                             or tuple(fc_b.shape) != (fc_w.shape[1],)):
+        raise ValueError(f"fc_w must be [C={c}, K] and fc_b [K], got {tuple(fc_w.shape)}, "
+                         f"{tuple(fc_b.shape)}")
+    devs = {t.device for t in (*xs, taps, bias, fc_w, fc_b) if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"{name} inputs must be on one device, got {devs}")
 
 
 def pack_qkv(q_w, q_b, k_w, k_b, v_w, v_b):
@@ -79,25 +115,9 @@ def creff_qkv_fused(lr_up, ref, taps, bias, kh, kw):
     tensors launch the kernel."""
     if lr_up.device.type == "cpu":
         return creff_qkv_fused_plain(lr_up, ref, taps, bias, kh, kw)
-    if lr_up.dim() != 4 or lr_up.shape != ref.shape:
-        raise ValueError(f"lr_up {tuple(lr_up.shape)} and ref {tuple(ref.shape)} must be one NHWC shape")
-    if lr_up.dtype != ref.dtype or lr_up.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{NAME} takes float32 or bfloat16 inputs of one dtype")
-    c = lr_up.shape[-1]
-    if c % CHANNEL_CHUNK:
-        raise ValueError(f"{NAME} needs C % {CHANNEL_CHUNK} == 0, got C={c}")
-    if kh != kw or kh not in (3, 5, 7):
-        raise ValueError(f"{NAME} is built for square 3, 5 or 7 windows, got {kh}x{kw}")
-    if tuple(taps.shape) != (3, 9, c) or tuple(bias.shape) != (3, c):
-        raise ValueError("taps/bias must come from pack_qkv")
-    devs = {t.device for t in (lr_up, ref, taps, bias)}
-    if len(devs) != 1:
-        raise ValueError(f"{NAME} inputs must be on one device, got {devs}")
-    lr_up = aligned16(lr_up)
-    ref = aligned16(ref)
-    taps = aligned16(taps.float())
-    bias = aligned16(bias.float())
+    check_inputs(NAME, dict(lr_up=lr_up, ref=ref), kh, kw, taps, bias)
+    lr_up, ref = aligned16(lr_up), aligned16(ref)
     out = torch.empty_like(lr_up)
-    _build.kernels().creff_qkv_fused(out, lr_up, ref, taps, bias, int(kh), int(kw))
-    _build.LAUNCHES[NAME] += 1
+    _build.launch(NAME, out, lr_up, ref, aligned16(taps.float()), aligned16(bias.float()),
+                  *lr_up.shape, kh, kw, lr_up.dtype)
     return out

@@ -26,8 +26,7 @@ not take.
 import numpy as np
 import torch
 
-from arseg_tpu_torch.ops import _build
-from arseg_tpu_torch.ops.creff_head_kernel import check_head_args
+from arseg_tpu_torch.ops.creff_head_kernel import launch_head
 from arseg_tpu_torch.ops.creff_kernel import creff_module_f32_plain
 from arseg_tpu_torch.ops.resize import _linear_gather
 
@@ -84,9 +83,4 @@ def creff_phase2_upsample_argmax(lr_up, ref, taps, bias, fc_w, fc_b, kh, kw):
     launch the kernel."""
     if lr_up.device.type == "cpu":
         return creff_phase2_upsample_argmax_plain(lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)
-    lr_up, ref, args = check_head_args(NAME, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)
-    n, h, w, _ = lr_up.shape
-    out = torch.empty((n, UP * h, UP * w), dtype=torch.int32, device=lr_up.device)
-    _build.kernels().creff_phase2_upsample_argmax(out, lr_up, ref, *args, int(kh), int(kw))
-    _build.LAUNCHES[NAME] += 1
-    return out
+    return launch_head(NAME, UP, lr_up, ref, taps, bias, fc_w, fc_b, kh, kw)

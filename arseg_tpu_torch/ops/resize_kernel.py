@@ -200,8 +200,8 @@ def resize_bilinear_backward(g, in_hw, align_corners):
     tw, ww = _tables_on(win, wout, align_corners, g.device)
     bh, rmax, tile = plan(nhwc, n, c, (hin, win), (hout, wout), vec, align_corners)
     dx = torch.empty((n, c, hin, win), dtype=g.dtype, device=g.device, memory_format=fmt)
-    _build.kernels().resize_bilinear_backward(dx, g, th, wh, tw, ww, bh, rmax, tile, int(nhwc))
-    _build.LAUNCHES[NAME] += 1
+    _build.launch(NAME, dx, g, th, wh, wh.shape[1], tw, ww, ww.shape[1], n, c, hin, win, hout,
+                  wout, bh, rmax, tile, nhwc, g.dtype)
     return dx
 
 

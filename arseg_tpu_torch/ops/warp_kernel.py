@@ -114,6 +114,6 @@ def warp_bilinear(src, fx, fy, align_corners=False):
     if src.data_ptr() % 16:
         raise ValueError(f"{NAME} needs a 16-byte aligned source")
     out = torch.empty((n, h, w, src.shape[-1]), dtype=src.dtype, device=src.device)
-    _build.kernels().warp_bilinear(out, src, fx, fy, bool(align_corners))
-    _build.LAUNCHES[NAME] += 1
+    _build.launch(NAME, out, src, fx, fy, n, src.shape[0], h, w, src.shape[-1], align_corners,
+                  src.dtype)
     return out

@@ -439,7 +439,7 @@ def build_phase():
 
     phase("build")
     t0 = time.perf_counter()
-    _build.kernels()
+    _build.library()
     how = "compiled with nvcc" if _build.BUILD_INFO["compiled"] else "loaded, already built"
     print(f"kernels {how} in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -896,13 +896,14 @@ def warp_sources_phase():
         pass
     else:
         raise SystemExit("chip_smoke: warp_bilinear took 3 sources for 32 frames")
-    rc = _build.kernels().lib.arseg_warp_bilinear(
-        out.data_ptr(), src.data_ptr(), fx.data_ptr(), fx.data_ptr(), 32, 3, 13, 37, 8, 0, 0,
-        torch.cuda.current_stream().cuda_stream)
-    if rc == 0:
+    try:
+        _build.launch("warp_bilinear", out, src, fx, fx, 32, 3, 13, 37, 8, 0, torch.float32)
+    except RuntimeError as e:
+        refused = e
+    else:
         raise SystemExit("chip_smoke: the K2 launcher took 3 sources for 32 frames")
     print(f"warp_bilinear: 3 sources for 32 frames refused by the wrapper (ValueError) and by "
-          f"the launcher (CUDA error {rc})", flush=True)
+          f"the launcher ({refused})", flush=True)
 
 
 # (n, h, w, c, window): sizes that are no multiple of the 16 x 16 tile, a
