@@ -8,7 +8,8 @@
 // Its users, all for bf16 inputs:
 // - module_kernel with an epilogue: K1 (creff_qkv_fused.cu, HALO = 0,
 //   stores the fused feature), K3 (creff_phase2_argmax.cu, HALO = 0, 1x1
-//   conv on the tensor cores and argmax) and K5
+//   conv on the tensor cores and argmax; its LR form wraps the epilogue in
+//   LrUp and reads the LR feature, see below) and K5
 //   (creff_phase2_upsample_argmax.cu, HALO = 1: overlapping tiles, 1x1
 //   conv in float32, x8 upsample and argmax in shared memory).
 // - The window products and the band softmax alone, as device functions
@@ -65,7 +66,24 @@
 //   bit. A thread takes a channel pair and two vertically adjacent outputs,
 //   which share three of their four loaded rows.
 // - Shared memory (dynamic): 167,424 bytes at K = 7, 153,984 at K = 5,
-//   141,312 at K = 3.
+//   141,312 at K = 3; LrUp: see below.
+// - The LR input (an epilogue wrapped in LrUp): lr is the LR feature
+//   [n, h_in, w_in, c], h_in <= h, w_in <= w, c <= LR_MAX_C, and lr_up is
+//   its bilinear align_corners=True resize to h x w, which never reaches
+//   device memory. Each pass-1 chunk copies the LR positions that its
+//   (TH + 2) x (TW + 2) lr_up halo reads (at most LRS x LRS for any ratio,
+//   11 x 11 at x2) a step earlier than the ref halo, and lerps them into
+//   the lr_up halo buffer a step before its convs, so the lerps overlap
+//   other warps' products like the convs. The lerp also keeps the halo's
+//   16 x 16 interior of every chunk (32 KB at c = 64), pass 2's residual:
+//   pass 2 stages and lerps nothing. Shared memory at K = 7, c = 64, x2:
+//   198,160 bytes (the lr_up ring two slots, not three; the tile's LR
+//   geometry 592; an LR ring of two 3,872-byte slots; the interiors), under
+//   the 196 KB carve-out that leaves the L1 60 KB for the spills. Timed on
+//   the H100 at [44,360,480,64] -> [44,720,960,64]: 43.6 ms; 44.0 with
+//   three-slot rings (212 KB, a 28 KB L1) and 47.1 lerping the interior
+//   again in pass 2 in place of keeping it, against 42.1-42.7 for the
+//   full-size K3 alone.
 //
 // Why not wgmma: a 64-row warpgroup tile would span four pixel rows whose
 // key bands differ, wasting more of the product; the function is bytes
@@ -93,6 +111,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace creff_mma {
 
 constexpr int TH = 16;              // output tile rows
@@ -103,6 +123,9 @@ constexpr int VR = 2;         // conv output rows per item (their rows share loa
 constexpr int CC = 16;        // channels per chunk: one k step
 constexpr int PS = 24;        // bf16 per staged position (16 + 8 pad: 48 B)
 constexpr int KVP = TW + 8;   // K/V row stride in positions: the 24 a segment's band spans
+// LR positions a lr_up halo's TH + 2 rows (or TW + 2 columns) read, at most:
+// 17 steps of at most one LR step each, and the last one's neighbour
+constexpr int LRS = TH + 3;
 
 template <int K>
 struct Geom {
@@ -117,6 +140,47 @@ struct Geom {
   static constexpr int SMEM_BYTES = 2 * (3 * (RBUF + LBUF) + 2 * (KV + Q)) + 4 * 3 * TB;
   static_assert(KW <= KVP, "K/V row too short");
 };
+
+// An epilogue whose module reads the LR feature lr [n, h_in, w_in, c]
+// (c <= LR_MAX_C) in place of lr_up; rh, rw: the align_corners=True scales
+// (h_in - 1) / (h - 1) and (w_in - 1) / (w - 1) in float32 (0 for an
+// output of one row or column), computed on the host as PyTorch computes
+// them; slot: bf16 elements of one staged LR halo (the most rows times the
+// most columns any tile reads, times 16).
+template <class Epi>
+struct LrUp : Epi {
+  int h_in, w_in;
+  float rh, rw;
+  int slot;
+};
+template <class E>
+struct is_lr_up : std::false_type {};
+template <class E>
+struct is_lr_up<LrUp<E>> : std::true_type {};
+
+// One tile's LR geometry (LrUp), in shared memory: the first LR row and
+// column its lr_up halo reads and how many; for each halo row (column) the
+// offsets in a staged LR halo, in bf16 elements, of the two LR rows
+// (columns) it reads, -1 outside the image, and their weights l0, l1 as
+// float bits.
+struct LrTile {
+  int ly0, lx0, rows, cols;
+  int4 row[TH + 2], col[TW + 2];
+};
+
+constexpr int LR_MAX_C = 64;  // LrUp: channels whose lr_up interiors shared memory holds
+
+// dynamic shared memory of module_kernel<K, Epi> for c channels: LrUp
+// takes one lr_up slot less, the tile's LR geometry, two LR halos and the
+// interiors
+template <int K, class Epi>
+int smem_bytes(const Epi& epi, int c) {
+  if constexpr (is_lr_up<Epi>::value)
+    return Geom<K>::SMEM_BYTES + 2 * (-Geom<K>::LBUF + 2 * epi.slot + TH * TW * c) +
+           static_cast<int>(sizeof(LrTile));
+  else
+    return Geom<K>::SMEM_BYTES;
+}
 
 // this warp's segment: the flat index pix0 of its pixel 0 (output row gy,
 // column gx0, which may be -1 with HALO = 1); its pixels lo <= px < hi lie
@@ -191,10 +255,11 @@ __device__ __forceinline__ float2 load_bf16x2(const __nv_bfloat16* p) {
 }
 
 // Start the copies of one 16-channel chunk (channels c0..c0+15) of the raw
-// ref halo (rows y0-P-1.., cols x0-P-1..) and lr_up halo (rows y0-1..,
-// cols x0-1..) into [position][16] bf16 buffers, zero outside the image,
-// and of the chunk's taps and biases into tb[conv][tap or 9 = bias][16].
-template <int K>
+// ref halo (rows y0-P-1.., cols x0-P-1..) and, with UP, the lr_up halo
+// (rows y0-1.., cols x0-1..) into [position][16] bf16 buffers, zero outside
+// the image, and of the chunk's taps and biases into tb[conv][tap or 9 =
+// bias][16].
+template <int K, bool UP = true>
 __device__ __forceinline__ void stage_chunk(__nv_bfloat16* rb, __nv_bfloat16* lb, float* tb,
                                             const __nv_bfloat16* ref_img,
                                             const __nv_bfloat16* lr_img,
@@ -215,13 +280,130 @@ __device__ __forceinline__ void stage_chunk(__nv_bfloat16* rb, __nv_bfloat16* lb
         in ? ref_img + (static_cast<int64_t>(gy) * w + gx) * c + c0 + half : ref_img;
     cp_async16(rb + pos * CC + half, src, in);
   }
-  for (int i = threadIdx.x; i < G::LH * G::LW * 2; i += NT) {
-    const int pos = i >> 1, half = (i & 1) * 8;
-    const int gy = y0 - 1 + pos / G::LW, gx = x0 - 1 + pos % G::LW;
-    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    const __nv_bfloat16* src =
-        in ? lr_img + (static_cast<int64_t>(gy) * w + gx) * c + c0 + half : lr_img;
-    cp_async16(lb + pos * CC + half, src, in);
+  if constexpr (UP) {
+    for (int i = threadIdx.x; i < G::LH * G::LW * 2; i += NT) {
+      const int pos = i >> 1, half = (i & 1) * 8;
+      const int gy = y0 - 1 + pos / G::LW, gx = x0 - 1 + pos % G::LW;
+      const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
+      const __nv_bfloat16* src =
+          in ? lr_img + (static_cast<int64_t>(gy) * w + gx) * c + c0 + half : lr_img;
+      cp_async16(lb + pos * CC + half, src, in);
+    }
+  }
+}
+
+// ---- the LR input (LrUp). Along one axis, lr_up index o reads LR indices
+// i = int(r * o) and i + 1 (i alone if it is the last), PyTorch's
+// area_pixel_compute_source_index in float32.
+
+// The first LR index that a tile's lr_up halo (indices o0 - 1 .. o0 + 16,
+// clipped to [0, out)) reads, and how many it reads (at most LRS for
+// in <= out; the launcher checks every tile). A lone float32 product is
+// rounded alike on the host and the card.
+__host__ __device__ __forceinline__ int lr_first(float r, int o0) {
+  return static_cast<int>(r * static_cast<float>(o0 > 0 ? o0 - 1 : 0));
+}
+__host__ __device__ __forceinline__ int lr_count(float r, int o0, int out, int in) {
+  const int last = static_cast<int>(r * static_cast<float>(o0 + TH < out ? o0 + TH : out - 1));
+  return (last + 1 < in ? last + 1 : in - 1) - lr_first(r, o0) + 1;
+}
+
+// One axis of LrTile: halo index k (image index o0 - 1 + k) reads LR
+// indices i and i + 1 (i alone if it is the last) with weights l0 = 1 - l1
+// and l1 = r * o - i, as PyTorch's kernel computes them; offsets
+// (i - first) * stride.
+__device__ __forceinline__ int4 lr_axis(float r, int o0, int k, int out, int in, int first,
+                                        int stride) {
+  const int o = o0 - 1 + k;
+  if (o < 0 || o >= out) return make_int4(-1, -1, 0, 0);
+  const float s = __fmul_rn(r, static_cast<float>(o));
+  const int i = static_cast<int>(s);
+  const float l1 = __fsub_rn(s, static_cast<float>(i)), l0 = __fsub_rn(1.0f, l1);
+  const int off = (i - first) * stride;
+  return make_int4(off, i < in - 1 ? off + stride : off, __float_as_int(l0), __float_as_int(l1));
+}
+
+// The tile at (y0, x0): its LrTile, by the first threads of the block.
+template <class Epi>
+__device__ __forceinline__ void lr_tile(LrTile& t, const Epi& epi, int h, int w, int y0,
+                                        int x0) {
+  const int k = threadIdx.x, ly0 = lr_first(epi.rh, y0), lx0 = lr_first(epi.rw, x0);
+  const int cols = lr_count(epi.rw, x0, w, epi.w_in);
+  if (k < TH + 2)
+    t.row[k] = lr_axis(epi.rh, y0, k, h, epi.h_in, ly0, cols * CC);
+  else if (k < TH + TW + 4)
+    t.col[k - TH - 2] = lr_axis(epi.rw, x0, k - TH - 2, w, epi.w_in, lx0, CC);
+  else if (k == TH + TW + 4) {
+    t.ly0 = ly0;
+    t.lx0 = lx0;
+    t.rows = lr_count(epi.rh, y0, h, epi.h_in);
+    t.cols = cols;
+  }
+}
+
+// Start the copies of one 16-channel chunk (channels c0..c0+15) of the LR
+// positions that the tile's lr_up halo reads into lb[(row * t.cols + col)
+// * 16]; all of them lie inside the LR image.
+__device__ __forceinline__ void stage_lr(__nv_bfloat16* lb, const __nv_bfloat16* lr_img,
+                                         const LrTile& t, int w_in, int c, int c0) {
+  const int rows = t.rows, cols = t.cols;
+  const __nv_bfloat16* src = lr_img + (static_cast<int64_t>(t.ly0) * w_in + t.lx0) * c + c0;
+  for (int i = threadIdx.x; i < rows * LRS * 2; i += NT) {
+    const int pos = i >> 1, half = (i & 1) * 8, row = pos / LRS, col = pos % LRS;
+    if (col < cols)
+      cp_async16(lb + (row * cols + col) * CC + half,
+                 src + static_cast<int64_t>(row * w_in + col) * c + half, true);
+  }
+}
+
+// The lr_up halo of one 16-channel chunk from the chunk's staged LR
+// positions lb (stage_lr) into dst[(row * (TW + 2) + col) * 16] bf16, 0
+// outside the image, and its 16 x 16 interior into keep[(row * TW + col)
+// * 16]. PyTorch's arithmetic (upsample_bilinear2d_nhwc): a row's lerp
+// fma(lw0, x0, lw1 * x1), then fma(lh0, row0, lh1 * row1), rounded once to
+// bf16. That is the contraction of PyTorch's compiled kernel, so each
+// value equals F.interpolate's on the card bit for bit. A thread takes one
+// column, one channel pair and a third of the rows top down, and keeps the
+// lerps of the two LR rows it read for the next output row (at x2 they
+// serve two).
+__device__ __forceinline__ void lerp_halo(__nv_bfloat16* dst, __nv_bfloat16* keep,
+                                          const __nv_bfloat16* lb, const LrTile& t) {
+  constexpr int LH = TH + 2, LW = TW + 2, RUNS = 3, RUN = LH / RUNS;
+  static_assert(LH % RUNS == 0 && LW * (CC / 2) * RUNS <= NT, "one item a thread");
+  const int it = threadIdx.x;
+  if (it >= LW * (CC / 2) * RUNS) return;
+  const int cl = 2 * (it % (CC / 2)), col = it / (CC / 2) % LW;
+  const int row0 = RUN * (it / (CC / 2) / LW);
+  const bool inner_col = col >= 1 && col <= TW;
+  const int4 ce = t.col[col];
+  const float lw0 = __int_as_float(ce.z), lw1 = __int_as_float(ce.w);
+  const __nv_bfloat16 *p0 = lb + ce.x + cl, *p1 = lb + ce.y + cl;
+  auto row_lerp = [&](int off) {
+    const float2 x0 = load_bf16x2(p0 + off), x1 = load_bf16x2(p1 + off);
+    return make_float2(__fmaf_rn(lw0, x0.x, __fmul_rn(lw1, x1.x)),
+                       __fmaf_rn(lw0, x0.y, __fmul_rn(lw1, x1.y)));
+  };
+  int have = -1, have1 = -1;  // the offsets of the LR rows whose lerps a and b hold
+  float2 a = make_float2(0.0f, 0.0f), b = a;
+#pragma unroll
+  for (int k = 0; k < RUN; ++k) {
+    const int row = row0 + k;
+    const int4 re = t.row[row];
+    uint32_t v = 0u;
+    if (ce.x >= 0 && re.x >= 0) {
+      if (re.x != have) {
+        a = re.x == have1 ? b : row_lerp(re.x);
+        b = re.y == re.x ? a : row_lerp(re.y);
+        have = re.x;
+        have1 = re.y;
+      }
+      const float lh0 = __int_as_float(re.z), lh1 = __int_as_float(re.w);
+      v = pack_bf16(__fmaf_rn(lh0, a.x, __fmul_rn(lh1, b.x)),
+                    __fmaf_rn(lh0, a.y, __fmul_rn(lh1, b.y)));
+    }
+    *reinterpret_cast<uint32_t*>(dst + (row * LW + col) * CC + cl) = v;
+    if (inner_col && row >= 1 && row <= TH)
+      *reinterpret_cast<uint32_t*>(keep + ((row - 1) * TW + col - 1) * CC + cl) = v;
   }
 }
 
@@ -375,7 +557,7 @@ __device__ __forceinline__ void zero_kv_pad(__nv_bfloat16* kv, int rows) {
 }
 
 // Grid: (ceil(w / SW), ceil(h / SH), n) with SW = TW - 2 HALO and
-// SH = TH - 2 HALO; NT threads; Geom<K>::SMEM_BYTES of dynamic shared
+// SH = TH - 2 HALO; NT threads; smem_bytes<K>(epi) of dynamic shared
 // memory. With Epi::HALO = 0 the tiles partition the image; with HALO = 1
 // a block's 16 x 16 tile starts one row and one column before its 14 x 14
 // interior, so neighbouring tiles overlap by two pixels. Chunks 0..nc-1
@@ -383,7 +565,9 @@ __device__ __forceinline__ void zero_kv_pad(__nv_bfloat16* kv, int rows) {
 // epilogue). Step j of one pipeline over both passes, between one barrier
 // and the next: start the copies of chunk j + 2, convolve chunk j + 1 (K
 // and Q, or V) on the CUDA cores, and multiply chunk j on the tensor
-// cores, so one warp's products overlap another's convs.
+// cores, so one warp's products overlap another's convs. With LrUp, pass-1
+// step j also starts the copies of chunk j + 3's LR halo and lerps chunk
+// j + 2's lr_up halo from it.
 template <int K, class Epi>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     module_kernel(const __nv_bfloat16* __restrict__ lr, const __nv_bfloat16* __restrict__ ref,
@@ -391,28 +575,56 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
                   int c, const __grid_constant__ Epi epi) {
   using G = Geom<K>;
   constexpr int HALO = Epi::HALO;
+  constexpr bool LR = is_lr_up<Epi>::value;  // lr is the LR feature; lr_up is built here
+  static_assert(!LR || (HALO == 0 && TH == TW), "the LR input takes partitioning square tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* rbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [3][RBUF] raw ref
-  __nv_bfloat16* lbuf = rbuf + 3 * G::RBUF;  // [3][LBUF] raw lr_up
-  __nv_bfloat16* kv_s = lbuf + 3 * G::LBUF;  // [2][KH][KVP][PS]: K (pass 1) or V (pass 2)
+  constexpr int LSLOTS = LR ? 2 : 3;  // LR: the lr_up halo is read in pass 1 alone
+  __nv_bfloat16* lbuf = rbuf + 3 * G::RBUF;  // [LSLOTS][LBUF] raw lr_up
+  __nv_bfloat16* kv_s = lbuf + LSLOTS * G::LBUF;  // [2][KH][KVP][PS]: K (pass 1) or V (pass 2)
   __nv_bfloat16* q_s = kv_s + 2 * G::KV;     // [2][TH * TW][PS]: Q; pass 2: epilogue scratch
   float* t_s = reinterpret_cast<float*>(q_s + 2 * G::Q);  // [3][TB] taps and biases
+  // LR: the tile's geometry, [2][slot] raw LR halos, [nc][TH * TW][CC]
+  // lr_up interiors
+  LrTile* lt = reinterpret_cast<LrTile*>(t_s + 3 * G::TB);
+  __nv_bfloat16* lrbuf = reinterpret_cast<__nv_bfloat16*>(lt + 1);
+  __nv_bfloat16* keep = lrbuf;
+  if constexpr (LR) keep += 2 * epi.slot;
 
   const int warp = threadIdx.x >> 5;
   const int py = warp;  // the warp's output row in the tile
   const int y0 = blockIdx.y * (TH - 2 * HALO) - HALO, x0 = blockIdx.x * (TW - 2 * HALO) - HALO;
   const int64_t plane = static_cast<int64_t>(h) * w * c;
-  const __nv_bfloat16* lr_img = lr + blockIdx.z * plane;
+  const __nv_bfloat16* lr_img;
+  if constexpr (LR)
+    lr_img = lr + blockIdx.z * (static_cast<int64_t>(epi.h_in) * epi.w_in * c);
+  else
+    lr_img = lr + blockIdx.z * plane;
   const __nv_bfloat16* ref_img = ref + blockIdx.z * plane;
   const int nc = c / CC;
 
   zero_kv_pad<G::KW, NT>(kv_s, 2 * G::KH);  // rows of both buffers
+  if constexpr (LR) {
+    lr_tile(*lt, epi, h, w, y0, x0);
+    __syncthreads();
+  }
 
   auto issue = [&](int j) {  // start the copies of chunk j into ring slot j % 3
     if (j < 2 * nc)
-      stage_chunk<K>(rbuf + (j % 3) * G::RBUF, lbuf + (j % 3) * G::LBUF, t_s + (j % 3) * G::TB,
-                     ref_img, lr_img, taps, bias, h, w, c, (j % nc) * CC, y0, x0);
+      stage_chunk<K, !LR>(rbuf + (j % 3) * G::RBUF, lbuf + (j % 3) * G::LBUF,
+                          t_s + (j % 3) * G::TB, ref_img, lr_img, taps, bias, h, w, c,
+                          (j % nc) * CC, y0, x0);
+    if constexpr (LR)  // and pass-1 chunk j + 1's LR halo, lerped a step before its convs
+      if (j + 1 < nc)
+        stage_lr(lrbuf + ((j + 1) & 1) * epi.slot, lr_img, *lt, epi.w_in, c, (j + 1) * CC);
     cp_async_commit();  // an empty group past the end keeps the count uniform
+  };
+  // LR: pass-1 chunk j's lr_up halo into lr_up slot j & 1, its interior kept
+  auto lerp = [&](int j) {
+    if constexpr (LR)
+      if (j < nc)
+        lerp_halo(lbuf + (j & 1) * G::LBUF, keep + j * (TH * TW * CC), lrbuf + (j & 1) * epi.slot,
+                  *lt);
   };
   auto convolve = [&](int j) {  // chunk j's K and Q, or V, into buffer j & 1
     const __nv_bfloat16* rb = rbuf + (j % 3) * G::RBUF;
@@ -420,8 +632,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     __nv_bfloat16* kv = kv_s + (j & 1) * G::KV;
     if (j < nc) {
       dw3<G::RW, G::KH, G::KW, KVP, true>(kv, rb, tb + 10 * CC, h, w, y0 - G::P, x0 - G::P);
-      dw3<G::LW, TH, TW, TW, false>(q_s + (j & 1) * G::Q, lbuf + (j % 3) * G::LBUF, tb, h, w, 0,
-                                    0);
+      dw3<G::LW, TH, TW, TW, false>(q_s + (j & 1) * G::Q, lbuf + (j % LSLOTS) * G::LBUF, tb, h,
+                                    w, 0, 0);
     } else {
       dw3<G::RW, G::KH, G::KW, KVP, true>(kv, rb, tb + 20 * CC, h, w, y0 - G::P, x0 - G::P);
     }
@@ -432,6 +644,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     cp_async_wait_all();
     __syncthreads();  // step j - 1 is done: chunk j's convs are visible
     issue(j + 2);
+    lerp(j + 2);
     if (j + 1 < 2 * nc) convolve(j + 1);
   };
 
@@ -444,10 +657,21 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       for (int e = 0; e < 4; ++e) s[dy][nt][e] = 0.0f;
   uint32_t p[K][3][2];  // p in bf16 pairs: window row, n8 tile, pixel row g + 8r
 
-  issue(0);
-  issue(1);
-  cp_async_wait_all();
-  __syncthreads();
+  if constexpr (LR) {  // chunk 0's LR halo, in chunk 0's group with chunk 1's
+    stage_lr(lrbuf, lr_img, *lt, epi.w_in, c, 0);
+    issue(0);
+    cp_async_wait_all();
+    __syncthreads();
+    lerp(0);
+    lerp(1);
+    __syncthreads();  // both LR slots free: chunk 1's copies bring chunk 2's
+    issue(1);
+  } else {
+    issue(0);
+    issue(1);
+    cp_async_wait_all();
+    __syncthreads();
+  }
   convolve(0);
   // ---- pass 1: S_dy += Q . K_dy^T, 16 channels a step -------------------
   for (int j = 0; j < nc; ++j) {
@@ -474,13 +698,16 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   for (int j = nc; j < 2 * nc; ++j) {
     begin_step(j);
     const __nv_bfloat16* lb = lbuf + (j % 3) * G::LBUF;  // the residual lr_up
+    // LR: the halo's interior kept in pass 1
+    const __nv_bfloat16* kb = keep + ((j - nc) * TH * TW + py * TW) * CC;
     float acc[2][4];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float2 v =
-            load_bf16x2(lb + ((py + 1) * G::LW + g + 8 * r + 1) * CC + 8 * nt + 2 * t);
+            LR ? load_bf16x2(kb + (g + 8 * r) * CC + 8 * nt + 2 * t)
+               : load_bf16x2(lb + ((py + 1) * G::LW + g + 8 * r + 1) * CC + 8 * nt + 2 * t);
         acc[nt][2 * r] = v.x;
         acc[nt][2 * r + 1] = v.y;
       }
@@ -502,7 +729,7 @@ int launch(const void* lr, const void* ref, const float* taps, const float* bias
   if ((reinterpret_cast<uintptr_t>(lr) | reinterpret_cast<uintptr_t>(ref) |
        reinterpret_cast<uintptr_t>(taps) | reinterpret_cast<uintptr_t>(bias)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);  // 16-byte cp.async sources
-  constexpr int smem = Geom<K>::SMEM_BYTES;
+  const int smem = smem_bytes<K>(epi, c);
   cudaError_t err = cudaFuncSetAttribute(module_kernel<K, Epi>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -34,6 +34,24 @@
 // epilogue: K = 7: 128 registers, 64 bytes spilled; K = 5: 128 registers,
 // no spills; K = 3: 126 registers, no spills. Dynamic shared memory
 // 167,424 / 153,984 / 141,312 bytes (creff_module_mma.cuh).
+//
+// The LR form (arseg_creff_phase2_argmax_lr; replaces that kernel and the
+// F.interpolate x2 align_corners=True resize before it in nn/pspnet.py):
+// the same body and epilogue wrapped in creff_mma::LrUp read the LR
+// feature [n, h_in, w_in, c <= 64] and build each tile's lr_up halo in
+// shared memory, equal to F.interpolate's on the card bit for bit, so
+// lr_up never reaches device memory. Bound at [11,360,480,64] ->
+// [11,720,960,64]: the LR feature (243 MB) and ref (973 MB) read once and
+// 30 MB of int32 written, about 0.37 ms at 3.35 TB/s (1.49 ms at 44
+// frames); bytes bound it as above. Design (creff_module_mma.cuh, "The LR
+// input"): pass 1 copies each chunk's LR halo (11 x 11 positions at x2)
+// and lerps it a step ahead of the convs, keeping the 16 x 16 interior
+// for pass 2's residual. Timed at 44 frames on the H100: 43.58 ms against
+// 42.69 for the full-size form alone and 59.25 for the resize and it.
+// ptxas: K = 7: 128 registers, 64 bytes of spill stores, 80 of loads;
+// K = 5: 128 registers, 4 bytes spilled; K = 3: 123 registers, no spills.
+// Dynamic shared memory at x2 and c = 64: 198,160 / 184,720 / 172,048
+// bytes. float32 is not built in this form: its wrapper resizes first.
 
 #include "creff_module.cuh"
 #include "creff_module_mma.cuh"
@@ -173,4 +191,41 @@ extern "C" int arseg_creff_phase2_argmax(int32_t* out, const void* lr_up, const 
     return creff_mma::launch_k(lr_up, ref, taps, bias, n, h, w, c, kh, epi, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The LR form: lr [n, h_in, w_in, c] is the LR feature, h_in <= h,
+// w_in <= w and c <= 64, and the module reads its bilinear
+// align_corners=True resize to h x w (F.interpolate's on the card, bit for
+// bit), built tile by tile in shared memory (creff_mma::LrUp). bfloat16
+// alone: float32 (the parity checks) resizes first and launches
+// arseg_creff_phase2_argmax.
+extern "C" int arseg_creff_phase2_argmax_lr(int32_t* out, const void* lr, const void* ref,
+                                            const float* taps, const float* bias,
+                                            const float* fc_w, const float* fc_b, int n,
+                                            int h_in, int w_in, int h, int w, int c,
+                                            int n_classes, int kh, int kw, int dtype,
+                                            void* stream) {
+  if (kh != kw || c % creff_mma::CC != 0 || c <= 0 || n < 0 || h <= 0 || w <= 0 || n > 65535 ||
+      n_classes < 1 || n_classes > MAX_CLASSES || h_in < 1 || w_in < 1 || h_in > h ||
+      w_in > w || c > creff_mma::LR_MAX_C || dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // PyTorch's area_pixel_compute_scale for align_corners=True, in float32
+  const float rh = h > 1 ? static_cast<float>(h_in - 1) / (h - 1) : 0.0f;
+  const float rw = w > 1 ? static_cast<float>(w_in - 1) / (w - 1) : 0.0f;
+  // the most LR rows and columns a tile reads: the staged halo's size
+  int rows = 0, cols = 0;
+  for (int y0 = 0; y0 < h; y0 += creff_mma::TH) {
+    const int k = creff_mma::lr_count(rh, y0, h, h_in);
+    rows = k > rows ? k : rows;
+  }
+  for (int x0 = 0; x0 < w; x0 += creff_mma::TW) {
+    const int k = creff_mma::lr_count(rw, x0, w, w_in);
+    cols = k > cols ? k : cols;
+  }
+  if (rows > creff_mma::LRS || cols > creff_mma::LRS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const creff_mma::LrUp<ArgmaxHeadMma> epi{
+      {out, fc_w, fc_b, n_classes}, h_in, w_in, rh, rw, rows * cols * creff_mma::CC};
+  return creff_mma::launch_k(lr, ref, taps, bias, n, h, w, c, kh, epi,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -49,6 +49,17 @@ int arseg_creff_phase2_argmax(int32_t* out, const void* lr_up, const void* ref,
                               int w, int c, int n_classes, int kh, int kw,
                               int dtype, void* stream);
 
+// arseg_creff_phase2_argmax with lr_up the bilinear align_corners=True
+// resize of lr [n, h_in, w_in, c] to h x w (h_in <= h, w_in <= w,
+// c <= 64), which the kernel builds in shared memory; ref: [n, h, w, c];
+// out: [n, h, w] int32. bfloat16 (dtype 1) alone.
+int arseg_creff_phase2_argmax_lr(int32_t* out, const void* lr, const void* ref,
+                                 const float* taps, const float* bias,
+                                 const float* fc_w, const float* fc_b, int n,
+                                 int h_in, int w_in, int h, int w, int c,
+                                 int n_classes, int kh, int kw, int dtype,
+                                 void* stream);
+
 // out = softmax(similar(q, k)) . v over a kh x kw window: logits summed in
 // float32, p rounded to the input type, float32 window sum, one final
 // rounding; window positions outside the image give logit 0 and value 0.

@@ -21,17 +21,18 @@ Module names are the reference checkpoint's: ``feats.*``,
 Serving entry points compute no classifier: ``forward_key`` (HR keyframe:
 logits at the input size + the feature CReFF takes) and
 ``forward_phase1(x, with_aux=False)``. ``forward_phase2_argmax`` of V1 with
-the "local" fusion is K3 (``ops/creff_head_kernel.py``): the fused module,
-``final_conv`` and the argmax in one kernel on the card. Its x2 resize of
-the LR feature to full resolution and K3 run over consecutive chunks of
-frames, each under ``CHUNK_ELEMENTS`` elements at full resolution
-(``F.interpolate`` refuses an output of INT_MAX elements or more, which 8
-GOPs of 720x960 at 64 channels pass); below that bound they run once.
+the "local" fusion is K3 (``ops/creff_head_kernel.py``): the x2 resize of
+the LR feature to full resolution, the fused module, ``final_conv`` and the
+argmax in one kernel on the card, which reads the LR feature at its own
+size. K3 runs over consecutive chunks of frames, each under
+``CHUNK_ELEMENTS`` elements at full resolution (``F.interpolate``, which
+the CPU path and ``return_fused=True`` take, refuses an output of INT_MAX
+elements or more, which 8 GOPs of 720x960 at 64 channels pass); below
+that bound it runs once.
 
 Spans (``record_function``, no-ops unless a profiler records):
 ``psp.decoder`` around the PSP module and the three upsamples, for the
-keyframe and the LR frames alike; ``psp.lr_up`` around each chunk's resize
-in ``forward_phase2_argmax``.
+keyframe and the LR frames alike.
 """
 
 import torch
@@ -45,7 +46,7 @@ from arseg_tpu_torch.nn.extractors import BACKBONES
 from arseg_tpu_torch.nn.functional import Dropout2d, batch_norm, resize_bilinear_nchw
 from arseg_tpu_torch.nn.resnet import ResNet
 from arseg_tpu_torch.ops import creff_head_kernel, creff_kernel
-from arseg_tpu_torch.ops.resize import adaptive_avg_pool, adaptive_max_pool_11, resize_bilinear
+from arseg_tpu_torch.ops.resize import adaptive_avg_pool, adaptive_max_pool_11
 
 MIDDLE_DIM = {0: None, 1: 64, 2: 512, 3: 64}
 # the most elements a full-resolution tensor of ``forward_phase2_argmax``
@@ -243,9 +244,10 @@ class PSPNet(nn.Module):
     def forward_phase2_argmax(self, mid, ref, return_fused=False):
         """int32 class maps [N, H, W] at ref's resolution: argmax of
         final_conv(fusion) (log_softmax and the identity resize skipped). V1
-        with the "local" fusion runs K3, which never writes the fused
-        feature; return_fused=True then computes it beside the maps. The
-        resize and K3 (and the fused feature) run over ``frame_chunks``."""
+        with the "local" fusion runs K3 on the LR feature, which never
+        writes the resized feature or the fused one; return_fused=True then
+        computes the fused feature beside the maps. K3 (and the fused
+        feature) run over ``frame_chunks``."""
         if self.fuse_version == 1 and self.attention_type == "local":
             fa = self.fuse_attention
             ref_nhwc, mid_nhwc = _nhwc(ref), _nhwc(mid)
@@ -255,10 +257,9 @@ class PSPNet(nn.Module):
                                                      self.final_conv.bias, mid.dtype)
             preds, fused = [], []
             for lo, hi in frame_chunks(ref.shape[0], hw[0] * hw[1] * mid.shape[1]):
-                with record_function("psp.lr_up"):
-                    lr_up = resize_bilinear(mid_nhwc[lo:hi], hw, align_corners=True)
                 preds.append(creff_head_kernel.creff_phase2_argmax(
-                    lr_up, ref_nhwc[lo:hi], taps, bias, fc_w, fc_b, self.atten_k, self.atten_k))
+                    mid_nhwc[lo:hi], ref_nhwc[lo:hi], taps, bias, fc_w, fc_b, self.atten_k,
+                    self.atten_k))
                 if return_fused:
                     fused.append(fa(ref[lo:hi], mid[lo:hi]))
             pred = preds[0] if len(preds) == 1 else torch.cat(preds)

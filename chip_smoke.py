@@ -19,6 +19,9 @@ Phases, in order; any failure exits non-zero:
      frames, K2 from 8 sources to 88 frames at 720x960x64, an output past
      2^31 elements in one launch; their plain versions run a GOP's frames
      at a time, which is all the card's memory holds beside them),
+     K3's LR form (the LR feature at 360x480, the x2 resize built in shared
+     memory) at camvid-psp18 V1's and its chunk's, its maps equal to the
+     resize and K3's and timed beside them (resize_k3_ms),
      streaming's (one frame), EvalAlterRes's (a batch of 2 frames, K2 with
      one source per frame) and the training step's (a
      batch of 16, K2 with one source per frame), K1B (K1's backward) at the
@@ -39,8 +42,9 @@ Phases, in order; any failure exits non-zero:
      Then K1, K3, K4 and K5 in bfloat16 (the tensor-core kernels) at edge
      shapes (sizes no multiple of the tile or of K5's 14-pixel interior, a
      single row or column, n = 1, C of 16, 64 and 512, windows 3, 5 and 7,
-     12 and 19 classes), and K3 and K5 with a tie of two classes and with
-     every logit below zero, printed with its seconds. The gather backward
+     12 and 19 classes), K3 and K5 with a tie of two classes and with
+     every logit below zero, and K3's LR form at other ratios and ragged
+     tiles (maps equal to the resize and K3's), printed with its seconds. The gather backward
      of bilinear resize (ops/resize_kernel.py) at the shapes of an FST
      stage-2 step at batch 16 (the heads' x8 and x16, the OHEM resize, K1's
      lr resize, the context and spatial paths'), in the layout of its
@@ -51,7 +55,8 @@ Phases, in order; any failure exits non-zero:
      counts of every kernel read around that run; then one GOP on the CPU
      (plain versions, float32) against the card in float32.
   5. camvid-psp18 V1 AR, the same traffic: scan_step over 3 GOPs with its
-     launch counts (K3 and K2 once per GOP, K1 never); a short GOP
+     launch counts (K3's LR form and K2 once per GOP, K1 and full-size K3
+     never); a short GOP
      (keyframe + 2 frames) on the CPU in float32 against the card in
      float32; camvid-psp18 V2: one GOP on the card with its launch counts
      (K1 and K2 once), and a short GOP on the CPU against the card, both in
@@ -72,8 +77,7 @@ Phases, in order; any failure exits non-zero:
      launch counts (K1 and K2 once), its maps against scan_step over the
      same GOPs in bf16 and in float32, and the ms per frame of both; then
      camvid-psp18 V1 the same way, whose 88 frames at 720x960x64 pass 2^31
-     elements, so the x2 resize and K3 run in two chunks of 44 (K3 twice,
-     K2 once).
+     elements, so K3's LR form runs in two chunks of 44 (twice, K2 once).
   9. streaming: camvid-bise18, one GOP as key_step + 11 frame_step calls
      against gop_step (float32), and the median ms per frame_step in bf16
      with its launch counts.
@@ -711,6 +715,60 @@ def k3_case(gen, dt, n, hw, c, n_classes):
                 flops=lr_up.numel() * (251 + 2 * n_classes))
 
 
+def k3_lr_case(gen, dt, n, hw, c, n_classes):
+    """K3's LR form: the LR feature at half of hw and ref at hw (bfloat16:
+    the LR form, float32: the resize and K3), against its plain version
+    (the resize and K3's plain version, a GOP's frames at a time): class-map
+    agreement and near ties at every disagreement, as K3; and against K3
+    over the feature resized as ``nn/pspnet.py`` resized it before the LR
+    form (``resize_bilinear``, align_corners=True): the maps equal bit for
+    bit, the launch counts of both routes. Timed beside that resize + K3
+    (``resize_k3_ms``) and the plain version."""
+    from arseg_tpu_torch.ops import _build, creff_head_kernel as k3, creff_kernel
+    from arseg_tpu_torch.ops.resize import resize_bilinear
+
+    lr = torch.randn(n, hw[0] // 2, hw[1] // 2, c, device="cuda", generator=gen).to(dt)
+    ref = torch.randn(n, *hw, c, device="cuda", generator=gen).to(dt)
+    taps, bias = _qkv_params(gen, c)
+    fc_w, fc_b = _head_params(gen, c, n_classes, dt)
+    head = (taps, bias, fc_w, fc_b, 7, 7)
+    run = lambda: k3.creff_phase2_argmax(lr, ref, *head)
+    resize_k3 = lambda: k3.creff_phase2_argmax(resize_bilinear(lr, hw, True), ref, *head)
+    _build.LAUNCHES.clear()
+    got = run()
+    lr_form = dict(_build.LAUNCHES)
+    want = resize_k3()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    expected = ({k3.NAME_LR: 1, k3.NAME: 1} if dt == torch.bfloat16
+                else {k3.NAME_LR: 0, k3.NAME: 2})
+    equal = torch.equal(got, want)
+    counted = all(launches.get(k, 0) == v for k, v in expected.items())
+    print(f"{k3.NAME_LR} {str(dt):14s} maps equal to resize_bilinear + K3's: {equal}; launches "
+          f"of the LR form {lr_form}, of both {launches} (expected {expected}) "
+          f"{'ok' if equal and counted else 'FAIL'}", flush=True)
+    if not equal or not counted:
+        raise SystemExit(f"chip_smoke: K3's LR form is not the resize and K3 in {dt}")
+    del want
+    # the plain version's logits, to find near ties where the maps differ
+    logits = _by_frames(lambda lo, hi: creff_kernel.creff_qkv_fused_plain(
+        resize_bilinear(lr[lo:hi], hw, True), ref[lo:hi], taps, bias, 7, 7).float()
+        @ fc_w + fc_b, n)
+    agree, differ, gap = check_maps(k3.NAME_LR, dt, got, logits, (n, *hw))
+    del got, logits
+    plain = lambda: _by_frames(lambda lo, hi: k3.creff_phase2_argmax_lr_plain(
+        lr[lo:hi], ref[lo:hi], *head), n)
+    elem_bytes = lr.element_size()
+    # a class map has no error magnitude: max_abs_err is that logit gap
+    return dict(max_abs_err=gap, agreement=agree, pixels_differ=differ, ms=median_ms(run),
+                plain_ms=median_ms(plain, runs=PLAIN_RUNS_PSP), library_ms=None,
+                resize_k3_ms=median_ms(resize_k3),
+                # the LR feature and ref read once, the int32 map written once
+                bytes=(lr.numel() + ref.numel()) * elem_bytes + n * hw[0] * hw[1] * 4
+                + (taps.numel() + bias.numel() + fc_w.numel() + fc_b.numel()) * 4,
+                flops=ref.numel() * (251 + 2 * n_classes))
+
+
 def k4_case(gen, dt, n, hw, c, plain_runs):
     """K4 at q, k, v [n, *hw, c] against its plain version."""
     from arseg_tpu_torch.ops import creff_attention_kernel
@@ -916,6 +974,12 @@ MODULE_EDGE_SHAPES = [
 # (one past a multiple, and one short of one), and a single column, where
 # the upsample's clamp folds i1 onto i0 along that axis as h = 1 does
 HEAD_EDGE_SHAPES = [(1, 15, 29, 64, 7), (2, 29, 43, 16, 5), (1, 27, 13, 32, 7), (1, 7, 1, 16, 3)]
+# K3's LR form, (n, h_in, w_in, h, w, c, window): x2 onto sizes off the
+# 16-pixel tile, 0.7x, a ratio of 7, one close to 1, W or H alone smaller,
+# a single row
+LR_EDGE_SHAPES = [(2, 36, 51, 71, 101, 64, 5), (1, 63, 84, 90, 120, 16, 7),
+                  (2, 7, 9, 50, 70, 32, 7), (2, 60, 80, 61, 81, 16, 3), (1, 37, 20, 37, 45, 64, 7),
+                  (1, 19, 37, 45, 37, 16, 5), (1, 1, 6, 1, 37, 16, 3)]
 
 
 def _tie_and_negative(name, run, logits_of, gen, dt):
@@ -943,9 +1007,11 @@ def module_edge_phase():
     classes; K1 and K3 at the first list only); then K3 and K5 with two
     classes tied in every pixel (the lower index must win everywhere) and
     with every logit below zero (K3: the zero columns that pad the classes
-    must never win)."""
+    must never win); then K3's LR form at LR_EDGE_SHAPES, its maps equal to
+    K3's over the resized feature."""
     from arseg_tpu_torch.ops import creff_attention_kernel, creff_head_kernel, creff_kernel
     from arseg_tpu_torch.ops import creff_upsample_head_kernel as k5
+    from arseg_tpu_torch.ops.resize import resize_bilinear
 
     t0 = time.perf_counter()
     phase("K1, K3, K4 and K5, bf16 tensor-core kernels, at edge shapes")
@@ -990,6 +1056,18 @@ def module_edge_phase():
                                                            7),
         lambda fc_w, fc_b: k5.upsampled_logits_plain(lr_up, ref, taps, bias, fc_w, fc_b, 7, 7),
         gen, dt)
+    for n, h_in, w_in, h, w, c, k in LR_EDGE_SHAPES:
+        lr = torch.randn(n, h_in, w_in, c, device="cuda", generator=gen).to(dt)
+        ref = torch.randn(n, h, w, c, device="cuda", generator=gen).to(dt)
+        head = (*_qkv_params(gen, c), *_head_params(gen, c, N_CLASSES, dt), k, k)
+        got = creff_head_kernel.creff_phase2_argmax(lr, ref, *head)
+        want = creff_head_kernel.creff_phase2_argmax(resize_bilinear(lr, (h, w), True), ref,
+                                                     *head)
+        equal = torch.equal(got, want)
+        print(f"{creff_head_kernel.NAME_LR} [{n},{h_in},{w_in},{c}] -> {h}x{w} window {k}: maps "
+              f"equal to resize_bilinear + K3's: {equal} {'ok' if equal else 'FAIL'}", flush=True)
+        if not equal:
+            raise SystemExit("chip_smoke: K3's LR form is not the resize and K3")
     print(f"-- kernel edge shapes: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -1009,6 +1087,7 @@ def kernel_phase():
         ("creff_qkv_fused", "bise18", k1_case, (n, FEAT_HW, C, TIMED_RUNS)),
         ("warp_bilinear", "bise18", k2_case, (n, FEAT_HW, C, TIMED_RUNS)),
         ("creff_phase2_argmax", "psp18 V1", k3_case, (n, (H, W), C_PSP, N_CLASSES)),
+        ("creff_phase2_argmax_lr", "psp18 V1", k3_lr_case, (n, (H, W), C_PSP, N_CLASSES)),
         ("warp_bilinear", "psp18 V1", k2_case, big),
         ("creff_qkv_fused", "psp18 V2", k1_case, v2),
         ("warp_bilinear", "psp18 V2", k2_case, v2),
@@ -1029,6 +1108,8 @@ def kernel_phase():
         ("warp_bilinear", "bise18 multi-GOP", k2_case,
          (MULTI_GOPS * n, FEAT_HW, C, PLAIN_RUNS_PSP, (H, W), MULTI_GOPS)),
         ("creff_phase2_argmax", "psp18 V1 multi-GOP chunk", k3_case,
+         (hi - lo, (H, W), C_PSP, N_CLASSES)),
+        ("creff_phase2_argmax_lr", "psp18 V1 multi-GOP chunk", k3_lr_case,
          (hi - lo, (H, W), C_PSP, N_CLASSES)),
         ("warp_bilinear", "psp18 V1 multi-GOP", k2_sources_case,
          (MULTI_GOPS * n, (H, W), C_PSP, PLAIN_RUNS_PSP, MULTI_GOPS)),
@@ -1063,9 +1144,11 @@ def kernel_phase():
     for (name, shape, dt), s in stats.items():
         _bound(s, dt)
         lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
+        parent = f" resize_k3_ms={s['resize_k3_ms']:.4f}" if "resize_k3_ms" in s else ""
         print(f"{name} {shape} {s['dims']} {str(dt):14s} ms={s['ms']:.4f} "
-              f"plain_ms={s['plain_ms']:.4f} library_ms={lib} bound_ms={s['bound_ms']:.4f} "
-              f"({s['bound_by']}) max_abs_err={s['max_abs_err']:.3e}", flush=True)
+              f"plain_ms={s['plain_ms']:.4f} library_ms={lib}{parent} "
+              f"bound_ms={s['bound_ms']:.4f} ({s['bound_by']}) "
+              f"max_abs_err={s['max_abs_err']:.3e}", flush=True)
     warp_edge_phase()
     module_edge_phase()
     return stats
@@ -1272,8 +1355,9 @@ def psp18_phase():
     models = make_models("camvid-psp18", 1)
     pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm, device="cuda")
     preds, launches = run_clip(pipe, make_clip(CLIP_GOPS), "camvid-psp18 V1")
-    expect_launches(launches, {"creff_phase2_argmax": CLIP_GOPS, "warp_bilinear": CLIP_GOPS,
-                               "creff_qkv_fused": 0}, "camvid-psp18 V1")
+    expect_launches(launches, {"creff_phase2_argmax_lr": CLIP_GOPS, "creff_phase2_argmax": 0,
+                               "warp_bilinear": CLIP_GOPS, "creff_qkv_fused": 0},
+                    "camvid-psp18 V1")
     del pipe, preds
     torch.cuda.empty_cache()
 
@@ -1407,14 +1491,15 @@ def multi_gop_phase(backend="camvid-bise18", fuse_version=1, expected=None,
 
 def psp18_multi_gop_phase():
     """camvid-psp18 V1, 8 GOPs in one gop_step: its 88 LR frames at
-    720x960x64 pass 2^31 elements, so the x2 resize and K3 run over two
-    chunks of 44 frames (K3 twice, K2 once, K1 never), held against
-    scan_step, whose GOPs run K3 once each."""
+    720x960x64 pass 2^31 elements, so K3's LR form runs over two chunks of
+    44 frames (twice, full-size K3 never, K2 once, K1 never), held against
+    scan_step, whose GOPs run it once each."""
     from arseg_tpu_torch.nn.pspnet import frame_chunks
 
     chunks = len(frame_chunks(MULTI_GOPS * (GOP - 1), H * W * C_PSP))
     return multi_gop_phase("camvid-psp18", 1, {
-        "creff_phase2_argmax": chunks, "warp_bilinear": 1, "creff_qkv_fused": 0,
+        "creff_phase2_argmax_lr": chunks, "creff_phase2_argmax": 0, "warp_bilinear": 1,
+        "creff_qkv_fused": 0,
         "creff_attention": 0, "creff_phase2_upsample_argmax": 0, "resize_bilinear_backward": 0},
         "camvid-psp18 V1 multi-GOP")
 
@@ -2511,9 +2596,10 @@ def backbone_phase(smi):
         pipe.gop_step(*args)  # warm-up
         out, launches = _counted(lambda: pipe.gop_step(*args))
         check_maps_range(out, (GOP, *hw), n_classes, name)
-        expect_launches(launches, {"warp_bilinear": 1, "creff_phase2_argmax": int(camvid),
-                                   "creff_qkv_fused": int(not camvid), "creff_attention": 0,
-                                   "creff_phase2_upsample_argmax": 0}, name)
+        expect_launches(launches, {"warp_bilinear": 1, "creff_phase2_argmax_lr": int(camvid),
+                                   "creff_phase2_argmax": 0, "creff_qkv_fused": int(not camvid),
+                                   "creff_attention": 0, "creff_phase2_upsample_argmax": 0},
+                        name)
         ms = float(np.median([_sync_ms(lambda: pipe.gop_step(*args))[1]
                               for _ in range(BACKBONE_RUNS)]))
         print(f"{name}: {ms:.3f} ms/GOP (median of {BACKBONE_RUNS}, {GOP * 1e3 / ms:.1f} "
@@ -2700,12 +2786,12 @@ def _stats(path):
 
 
 def _path_launches(backend, n):
-    """Launches of n GOP steps of backend's default path: K1 (bise18) or K3
-    (psp18 V1), and K2, once a step."""
-    head = "creff_qkv_fused" if "bise" in backend else "creff_phase2_argmax"
-    other = "creff_phase2_argmax" if "bise" in backend else "creff_qkv_fused"
-    return {head: n, "warp_bilinear": n, other: 0, "creff_attention": 0,
-            "creff_phase2_upsample_argmax": 0}
+    """Launches of n bfloat16 GOP steps of backend's default path: K1
+    (bise18) or K3's LR form (psp18 V1), and K2, once a step."""
+    head = "creff_qkv_fused" if "bise" in backend else "creff_phase2_argmax_lr"
+    other = "creff_phase2_argmax_lr" if "bise" in backend else "creff_qkv_fused"
+    return {head: n, "warp_bilinear": n, other: 0, "creff_phase2_argmax": 0,
+            "creff_attention": 0, "creff_phase2_upsample_argmax": 0}
 
 
 def video_rank(rank, port, jobs, out_dir):
@@ -3355,6 +3441,9 @@ def main():
                           "arseg_tpu/ops/pallas_warp.py:115", "bise18"),
         "creff_phase2_argmax": ("arseg_tpu_torch/csrc/creff_phase2_argmax.cu",
                                 "arseg_tpu/ops/pallas_creff.py:485", "psp18 V1"),
+        "creff_phase2_argmax_lr": ("arseg_tpu_torch/csrc/creff_phase2_argmax.cu",
+                                   "arseg_tpu/ops/pallas_creff.py:485 and the x2 resize before it",
+                                   "psp18 V1"),
         "creff_attention": ("arseg_tpu_torch/csrc/creff_attention.cu",
                             "arseg_tpu/ops/pallas_creff.py:151", "bise18 localNoGroup"),
         "creff_phase2_upsample_argmax": ("arseg_tpu_torch/csrc/creff_phase2_upsample_argmax.cu",
@@ -3364,7 +3453,8 @@ def main():
                                      "none (the JAX package leaves this backward to XLA)",
                                      "training stage 2 main head x8"),
     }
-    keys = ("dims", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    keys = ("dims", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+            "resize_k3_ms")
     for name, (source, replaces, shape) in sources.items():
         s = stats[(name, shape, torch.bfloat16)]
         by_path = {p: launches.get(name, 0) for p, launches in paths.items()}
@@ -3374,9 +3464,11 @@ def main():
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "shape": shape, "dims": s["dims"], "launches_by_path": by_path,
-            "other_shapes": {k[1]: {x: o[x] for x in keys} for k, o in stats.items()
+            "other_shapes": {k[1]: {x: o[x] for x in keys if x in o} for k, o in stats.items()
                              if k[0] == name and k[1] != shape and k[2] == torch.bfloat16},
         }
+        if "resize_k3_ms" in s:
+            entry["resize_k3_ms"] = s["resize_k3_ms"]
         if "agreement" in s:
             entry["agreement"] = s["agreement"]
             entry["pixels_differ"] = s["pixels_differ"]

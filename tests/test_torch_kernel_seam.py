@@ -77,8 +77,28 @@ def test_creff_wrappers_refuse_alike(kernel, fault):
 
 @pytest.mark.parametrize("kernel", list(NAMES))
 def test_creff_wrappers_refuse_mismatched_shapes(kernel):
+    """The first input shorter than the second; for K3, whose shorter first
+    input is the LR feature of its LR form, taller."""
+    a, b = (_nhwc(h=5), _nhwc()) if kernel == "K3" else (_nhwc(), _nhwc(h=5))
     with pytest.raises(ValueError, match="one NHWC shape"):
-        _call(kernel, _nhwc(), _nhwc(h=5))
+        _call(kernel, a, b)
+
+
+@pytest.mark.parametrize("kernel", [k for k in NAMES if k != "K3"])
+def test_creff_wrappers_refuse_a_taller_first_input(kernel):
+    with pytest.raises(ValueError, match="one NHWC shape"):
+        _call(kernel, _nhwc(h=5), _nhwc())
+
+
+@pytest.mark.parametrize("lr_shape,dtype", [((2, 2, 4, 16), torch.bfloat16),
+                                            ((1, 2, 4, 32), torch.bfloat16),
+                                            ((1, 2, 4, 16), torch.float32)])
+def test_k3_lr_form_refuses_an_lr_feature_unlike_ref(lr_shape, dtype):
+    """The LR form takes ref's frames, channels and dtype."""
+    taps, bias, fc_w, fc_b = _packed()
+    lr = torch.empty(*lr_shape, dtype=dtype, device=META)
+    with pytest.raises(ValueError, match="creff_phase2_argmax_lr: lr .* must hold ref's frames"):
+        creff_head_kernel.launch_lr(lr, _nhwc(dtype=torch.bfloat16), taps, bias, fc_w, fc_b, 7, 7)
 
 
 def _declarations():
@@ -131,7 +151,12 @@ def _every_wrapper():
     resize_kernel.resize_bilinear_backward(g, (4, 4), False)
     resize_kernel.resize_bilinear_backward(g.contiguous(memory_format=torch.channels_last),
                                            (4, 4), True)
-    return [NAMES[k] for k in NAMES] + [warp_kernel.NAME] + [resize_kernel.NAME] * 2
+    # K3's LR form: a bfloat16 LR feature smaller than ref
+    taps, bias, fc_w, fc_b = _packed(64)
+    creff_head_kernel.creff_phase2_argmax(_nhwc(64, torch.bfloat16, h=2, w=3),
+                                          _nhwc(64, torch.bfloat16), taps, bias, fc_w, fc_b, 7, 7)
+    return ([NAMES[k] for k in NAMES] + [warp_kernel.NAME] + [resize_kernel.NAME] * 2
+            + [creff_head_kernel.NAME_LR])
 
 
 def test_every_launch_matches_its_declaration_in_kernels_h(fake_library):

@@ -1,10 +1,10 @@
 """camvid-psp18 V1 (PSPNet-18, CReFF at the 64-channel decoder output at
 full resolution) through the serving path, against the benchmark's plain
 reference (``h100_bench/reference/pspnet.py``), and
-``PSPNet.forward_phase2_argmax`` over chunks of frames (the x2 resize and
-K3, chunked where a full-resolution tensor would pass
-``nn/pspnet.CHUNK_ELEMENTS``) against the one-shot path. CPU, float32,
-seeded; the ``cuda`` case counts K3's launches on a card."""
+``PSPNet.forward_phase2_argmax`` over chunks of frames (K3, which takes the
+LR feature and resizes it x2, chunked where a full-resolution tensor would
+pass ``nn/pspnet.CHUNK_ELEMENTS``) against the one-shot path. CPU, float32,
+seeded; the ``cuda`` case counts the launches of K3's LR form on a card."""
 
 import sys
 from pathlib import Path
@@ -153,5 +153,7 @@ def test_k3_launches_once_a_chunk_on_a_card(monkeypatch):
         monkeypatch.setattr(pspnet, "CHUNK_ELEMENTS", 2 * 16 * 24 * 64)
         _build.LAUNCHES.clear()
         got = model.forward_phase2_argmax(mid, ref)
-    assert _build.LAUNCHES[creff_head_kernel.NAME] == 3
+    # bfloat16 LR features: K3's LR form, once a chunk; full-size K3 never
+    assert _build.LAUNCHES[creff_head_kernel.NAME_LR] == 3
+    assert _build.LAUNCHES[creff_head_kernel.NAME] == 0
     assert torch.equal(got, maps)
