@@ -14,7 +14,7 @@ fusion and head under ``nn/bisenet.USE_FUSED_UPSAMPLE_HEAD``;
 camvid-psp18 V1 fuses at full resolution and runs K3
 (module, 1x1 conv and argmax in one kernel). Elsewhere (camvid-psp18 V2,
 cityscapes-psp18, whose fusion is K1) ``forward_phase2`` -> resize ->
-argmax.
+argmax, the resize and argmax over ``nn/functional.frame_chunks``.
 
 Flows reach the feature grid two ways, each as its JAX counterpart takes
 them: ``gop_step`` resizes the planes and then rescales their magnitude
@@ -44,7 +44,9 @@ Each stage runs under a ``torch.profiler.record_function`` span named
 ``gop.<stage>`` (a no-op unless a profiler is recording), which
 ``tools_torch_profile_gop.py`` reads, and the benchmark's per-layer
 readers too (``h100_bench/metrics``: ``lr_phase1_ms.serve``,
-``fuse_head_ms.serve``, and the idle gaps of its traced runs).
+``fuse_head_ms.serve``, and the idle gaps of its traced runs). Inside
+``gop.fuse_head``, each chunk of the resize-and-argmax head runs under
+``gop.head_chunk``.
 """
 
 import copy
@@ -55,6 +57,7 @@ from torch.profiler import record_function
 
 from arseg_tpu_torch._device import resolve_device
 from arseg_tpu_torch.models.registry import phase2_argmax_head
+from arseg_tpu_torch.nn.functional import frame_chunks
 from arseg_tpu_torch.ops.warp import _resize_plane_bilinear, scale_and_resize_flow, warp_feature
 from arseg_tpu_torch.parallel.group import check_group, gather_rows, pad_rows, shard_batch
 
@@ -156,10 +159,24 @@ class ARPipeline:
             if head is not None:
                 return head(feat, warped, return_fused=return_fused)
             logits, fused = self.lr_model.forward_phase2(feat, warped)
-            logits = F.interpolate(logits, size=tuple(out_hw), mode="bilinear",
-                                   align_corners=True)
-            preds = logits.argmax(dim=1).to(torch.int32)
+            preds = self._resized_argmax(logits, out_hw)
             return (preds, fused) if return_fused else preds
+
+    @staticmethod
+    def _resized_argmax(logits, out_hw):
+        """int32 maps [n, *out_hw]: the logits resized to out_hw
+        (align_corners=True) and their argmax, over ``frame_chunks`` so that
+        no resized chunk reaches ``F.interpolate``'s INT_MAX elements (8 GOPs
+        of 19 classes at 1024x2048 take two chunks), each chunk's maps
+        written into one output."""
+        n, c = logits.shape[:2]
+        preds = torch.empty((n, *out_hw), dtype=torch.int32, device=logits.device)
+        for lo, hi in frame_chunks(n, c * out_hw[0] * out_hw[1]):
+            with record_function("gop.head_chunk"):
+                up = F.interpolate(logits[lo:hi], size=tuple(out_hw), mode="bilinear",
+                                   align_corners=True)
+                preds[lo:hi] = up.argmax(dim=1)
+        return preds
 
     def _key_maps(self, key_logits, hw):
         with record_function("gop.key_argmax"):

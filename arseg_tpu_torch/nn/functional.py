@@ -33,6 +33,20 @@ from arseg_tpu_torch.parallel.group import all_reduce_sum, sync_group
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+# the most elements a full-resolution tensor of a chunked head holds:
+# F.interpolate takes outputs of fewer than INT_MAX = 2^31 - 1
+CHUNK_ELEMENTS = 2**31 - 2
+
+
+def frame_chunks(n, frame_elements):
+    """[lo, hi) ranges of n frames: one when all n keep the full-resolution
+    tensor (frame_elements a frame) within ``CHUNK_ELEMENTS``, else as few
+    consecutive chunks of near equal size as keep each within it."""
+    per = max(1, CHUNK_ELEMENTS // frame_elements)
+    if n <= per:
+        return [(0, n)]
+    size = -(-n // -(-n // per))
+    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]
 
 
 def resize_bilinear_nchw(x, hw, align_corners):

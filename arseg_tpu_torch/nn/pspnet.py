@@ -24,11 +24,12 @@ logits at the input size + the feature CReFF takes) and
 the "local" fusion is K3 (``ops/creff_head_kernel.py``): the x2 resize of
 the LR feature to full resolution, the fused module, ``final_conv`` and the
 argmax in one kernel on the card, which reads the LR feature at its own
-size. K3 runs over consecutive chunks of frames, each under
-``CHUNK_ELEMENTS`` elements at full resolution (``F.interpolate``, which
-the CPU path and ``return_fused=True`` take, refuses an output of INT_MAX
-elements or more, which 8 GOPs of 720x960 at 64 channels pass); below
-that bound it runs once.
+size. K3 runs over consecutive chunks of frames
+(``nn/functional.frame_chunks``), each under ``CHUNK_ELEMENTS`` elements
+at full resolution (``F.interpolate``, which the CPU path and
+``return_fused=True`` take, refuses an output of INT_MAX elements or
+more, which 8 GOPs of 720x960 at 64 channels pass); below that bound it
+runs once.
 
 Spans (``record_function``, no-ops unless a profiler records):
 ``psp.decoder`` around the PSP module and the three upsamples, for the
@@ -43,15 +44,13 @@ from torch.profiler import record_function
 from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.attention import get_fusion
 from arseg_tpu_torch.nn.extractors import BACKBONES
-from arseg_tpu_torch.nn.functional import Dropout2d, batch_norm, resize_bilinear_nchw
+from arseg_tpu_torch.nn.functional import (Dropout2d, batch_norm, frame_chunks,
+                                           resize_bilinear_nchw)
 from arseg_tpu_torch.nn.resnet import ResNet
 from arseg_tpu_torch.ops import creff_head_kernel, creff_kernel
 from arseg_tpu_torch.ops.resize import adaptive_avg_pool, adaptive_max_pool_11
 
 MIDDLE_DIM = {0: None, 1: 64, 2: 512, 3: 64}
-# the most elements a full-resolution tensor of ``forward_phase2_argmax``
-# holds: F.interpolate takes outputs of fewer than INT_MAX = 2^31 - 1
-CHUNK_ELEMENTS = 2**31 - 2
 
 
 def _nhwc(x):
@@ -269,14 +268,3 @@ class PSPNet(nn.Module):
         outs = self.forward_phase2(mid, ref, log_probs=False)
         pred = outs[0].argmax(dim=1).to(torch.int32)
         return (pred, outs[-1]) if return_fused else pred
-
-
-def frame_chunks(n, frame_elements):
-    """[lo, hi) ranges of n frames: one when all n keep the full-resolution
-    tensor (frame_elements a frame) within ``CHUNK_ELEMENTS``, else as few
-    consecutive chunks of near equal size as keep each within it."""
-    per = max(1, CHUNK_ELEMENTS // frame_elements)
-    if n <= per:
-        return [(0, n)]
-    size = -(-n // -(-n // per))
-    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]

@@ -24,10 +24,15 @@ logits at the input size + the feature CReFF takes) and
 ``forward_phase1(x, with_aux=False)``. There is no
 ``forward_phase2_argmax``: callers take forward_phase2 -> resize -> argmax.
 With the "local" fusion, CReFF is K1 (``ops/creff_kernel.py``).
+
+Spans (``record_function``, no-ops unless a profiler records):
+``semseg.ppm_cls`` around the PPM and ``cls[:4]``, for the keyframe and
+the LR frames alike.
 """
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.attention import get_fusion
@@ -105,7 +110,8 @@ class PSPNetSemseg(nn.Module):
 
     def _cls_feature(self, x):
         """cls[:-1] after the PPM: the 512-channel feature p."""
-        return self.cls[:4](self.ppm(x))
+        with record_function("semseg.ppm_cls"):
+            return self.cls[:4](self.ppm(x))
 
     def _to_input(self, logits, hw):
         return resize_bilinear_nchw(logits, hw, True) if self.zoom_factor != 1 else logits

@@ -3,7 +3,7 @@ full resolution) through the serving path, against the benchmark's plain
 reference (``h100_bench/reference/pspnet.py``), and
 ``PSPNet.forward_phase2_argmax`` over chunks of frames (K3, which takes the
 LR feature and resizes it x2, chunked where a full-resolution tensor would
-pass ``nn/pspnet.CHUNK_ELEMENTS``) against the one-shot path. CPU, float32,
+pass ``nn/functional.CHUNK_ELEMENTS``) against the one-shot path. CPU, float32,
 seeded; the ``cuda`` case counts the launches of K3's LR form on a card."""
 
 import sys
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from arseg_tpu_torch.gop import ARPipeline
-from arseg_tpu_torch.nn import pspnet
+from arseg_tpu_torch.nn import functional, pspnet
 from arseg_tpu_torch.ops import _build, creff_head_kernel
 
 from torch_parity import few_threads  # noqa: F401 (a fixture)
@@ -120,9 +120,9 @@ def test_chunked_phase2_argmax_is_bit_equal_to_one_shot(monkeypatch, per_chunk, 
         seen.append(lr_up.shape[0])
         return orig(lr_up, *a)
 
-    monkeypatch.setattr(pspnet, "CHUNK_ELEMENTS", per_chunk * 16 * 24 * 64 + 63)
+    monkeypatch.setattr(functional, "CHUNK_ELEMENTS", per_chunk * 16 * 24 * 64 + 63)
     monkeypatch.setattr(creff_head_kernel, "creff_phase2_argmax", counted)
-    assert pspnet.frame_chunks(5, 16 * 24 * 64) == ranges
+    assert functional.frame_chunks(5, 16 * 24 * 64) == ranges
     with torch.no_grad():
         got_maps, got_fused = model.forward_phase2_argmax(mid, ref, return_fused=True)
         got_alone = model.forward_phase2_argmax(mid, ref)
@@ -135,9 +135,9 @@ def test_the_bound_keeps_eight_gops_of_720x960_in_two_chunks():
     """88 frames of [720, 960, 64]: two chunks of 44, each under INT_MAX
     elements; the frames of 4 GOPs (44) stay one chunk."""
     frame = 720 * 960 * 64
-    assert pspnet.frame_chunks(88, frame) == [(0, 44), (44, 88)]
-    assert pspnet.frame_chunks(44, frame) == [(0, 44)]
-    assert all((hi - lo) * frame < 2 ** 31 - 1 for lo, hi in pspnet.frame_chunks(88, frame))
+    assert functional.frame_chunks(88, frame) == [(0, 44), (44, 88)]
+    assert functional.frame_chunks(44, frame) == [(0, 44)]
+    assert all((hi - lo) * frame < 2 ** 31 - 1 for lo, hi in functional.frame_chunks(88, frame))
 
 
 @pytest.mark.cuda
@@ -150,7 +150,7 @@ def test_k3_launches_once_a_chunk_on_a_card(monkeypatch):
     ref = ref.cuda().to(torch.bfloat16).to(memory_format=torch.channels_last)
     with torch.no_grad():
         maps = model.forward_phase2_argmax(mid, ref)
-        monkeypatch.setattr(pspnet, "CHUNK_ELEMENTS", 2 * 16 * 24 * 64)
+        monkeypatch.setattr(functional, "CHUNK_ELEMENTS", 2 * 16 * 24 * 64)
         _build.LAUNCHES.clear()
         got = model.forward_phase2_argmax(mid, ref)
     # bfloat16 LR features: K3's LR form, once a chunk; full-size K3 never
