@@ -109,6 +109,19 @@ int arseg_resize_bilinear_backward(void* dx, const void* g, const int* th,
                                    int bh, int rmax, int tile, int layout,
                                    int dtype, void* stream);
 
+// out[n, y, x] = the argmax over classes of the bilinear resize of logits
+// [n, h_in, w_in, c] (NHWC) to h x w (F.interpolate, mode "bilinear",
+// align_corners as given), each value rounded to the logits' type as the
+// resize's output is; lowest class on ties, the first NaN wins. out: [n, h,
+// w] int32. 1 <= c <= 65535, any sizes; the resized logits are never
+// written. top_right (float32 only): match PyTorch's channels_last kernel,
+// whose lerp of the top source row fuses the right tap's product into the
+// add, in place of its NCHW kernel.
+int arseg_resize_bilinear_argmax(int32_t* out, const void* logits, int n, int c,
+                                 int h_in, int w_in, int h, int w,
+                                 int align_corners, int top_right, int dtype,
+                                 void* stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -10,9 +10,11 @@ reference's does, and a released ``.pth`` loads strict.
 
 Serving entry points compute no auxiliary head: ``forward_key`` (HR
 keyframe: logits + fused feature) and ``forward_phase1(x, with_aux=False)``.
-``forward_phase2_argmax`` takes the planes head (1x1 conv, x8 bilinear,
-argmax) unless ``USE_FUSED_UPSAMPLE_HEAD`` is set and the fusion is
-"local": then K5 runs the fusion and the whole head in one kernel.
+``forward_phase2_argmax`` takes the planes head (1x1 conv, then the x8
+bilinear resize and argmax in one kernel on the card,
+``ops/resize_argmax_kernel``) unless ``USE_FUSED_UPSAMPLE_HEAD`` is set and
+the fusion is "local": then K5 runs the fusion and the whole head in one
+kernel.
 """
 
 import torch
@@ -23,7 +25,7 @@ from arseg_tpu_torch.nn import init as Init
 from arseg_tpu_torch.nn.attention import get_fusion
 from arseg_tpu_torch.nn.functional import ConvBNReLU, batch_norm, resize_bilinear_nchw
 from arseg_tpu_torch.nn.resnet import ResNet
-from arseg_tpu_torch.ops import creff_kernel, creff_upsample_head_kernel
+from arseg_tpu_torch.ops import creff_kernel, creff_upsample_head_kernel, resize_argmax_kernel
 from arseg_tpu_torch.ops.resize import interpolate_bilinear, resize_bilinear
 
 # The fused inference head (CReFF + final_conv + x8 upsample + argmax in one
@@ -221,5 +223,7 @@ class BiSeNetV1(nn.Module):
                 lr_up, ref_nhwc, taps, bias, fc_w, fc_b, self.atten_k, self.atten_k)
             return (pred, fa(ref, mid)) if return_fused else pred
         fused = self.fuse_attention(ref, mid)
-        pred = _upsample(self.conv_out.conv_out(fused), 8).argmax(dim=1).to(torch.int32)
+        logits = self.conv_out.conv_out(fused)
+        pred = resize_argmax_kernel.resized_argmax(
+            logits, (logits.shape[-2] * 8, logits.shape[-1] * 8), align_corners=False)
         return (pred, fused) if return_fused else pred

@@ -49,7 +49,16 @@ Phases, in order; any failure exits non-zero:
      stage-2 step at batch 16 (the heads' x8 and x16, the OHEM resize, K1's
      lr resize, the context and spatial paths'), in the layout of its
      incoming gradient there, against its plain version, beside PyTorch's
-     own backward (aten upsample_bilinear2d_backward) as library_ms.
+     own backward (aten upsample_bilinear2d_backward) as library_ms. The
+     resize-and-argmax head (ops/resize_argmax_kernel.py) at the shapes of
+     cityscapes-bise18's planes head over 4 GOPs (44 frames of 19 classes,
+     128x256 -> 1024x2048, align_corners=False), cityscapes-psp18's fallback
+     head over 8 GOPs (88 frames, align_corners=True: 3.5e9 resized values
+     in one launch) and camvid-bise18's GOP (11 frames of 12 classes, 90x120
+     -> 720x960): its maps equal to its plain version's (the resize and
+     argmax over frame chunks) bit for bit, timed beside that plain version
+     and beside F.interpolate and argmax alone (library_ms), with ptxas's
+     registers and spills of its instantiations (tools_torch_ptxas.py).
   4. camvid-bise18 AR 0.5x, GOP 12, 720x960, bf16, full width, random
      seeded weights: scan_step over 3 GOPs of uint8 frames, with the launch
      counts of every kernel read around that run; then one GOP on the CPU
@@ -79,10 +88,14 @@ Phases, in order; any failure exits non-zero:
      camvid-psp18 V1 the same way, whose 88 frames at 720x960x64 pass 2^31
      elements, so K3's LR form runs in two chunks of 44 (twice, K2 once);
      then cityscapes-psp18, 8 GOPs at 1024x2048, whose 88 frames' 19-class
-     logits at full size pass 2^31 elements, so the resize-and-argmax head
-     runs in two chunks of 44 (two gop.head_chunk spans, K1 and K2 once):
+     logits at full size pass 2^31 elements, which the resize-and-argmax
+     kernel takes in one launch (one gop.head_chunk span; K1 and K2 once):
      its maps against scan_step in float32, and in bf16 no further from the
-     float32 maps than scan_step's; ms per frame and peak memory.
+     float32 maps than scan_step's, and bit-equal to the same step with the
+     head's plain version (the resize and argmax over two chunks of 44
+     frames); ms per frame and peak memory; then cityscapes-bise18 the same
+     way at 8 GOPs (BiSeNet's planes head over 88 frames, one launch): its
+     maps bit-equal to the plain head's, in bf16.
   9. streaming: camvid-bise18, one GOP as key_step + 11 frame_step calls
      against gop_step (float32), and the median ms per frame_step in bf16
      with its launch counts.
@@ -229,6 +242,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -472,9 +486,10 @@ def check(name, dtype, got, want):
 
 def _bound(s, dt):
     t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = s["flops"] / PEAK_FLOPS[dt] * 1e3
+    t_ops = s.get("ops_ms", s["flops"] / PEAK_FLOPS[dt] * 1e3)
     s["bound_ms"] = max(t_bytes, t_ops)
-    s["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    s["bound_by"] = ("bytes" if t_bytes >= t_ops else
+                     "instructions" if "ops_ms" in s else "operations")
 
 
 def _qkv_params(gen, c):
@@ -566,6 +581,76 @@ def resize_backward_phase():
             stats[("resize_bilinear_backward", key, dt)] = dict(
                 resize_case(gen, dt, shape, size, align, nhwc), dims=[*shape, *size])
             torch.cuda.empty_cache()
+    return stats
+
+
+# the resize-and-argmax head's shapes: (shape key, logits [N, K, h, w],
+# output size, align_corners)
+RESIZE_ARGMAX_CASES = [
+    ("cityscapes-bise18", (4 * (GOP - 1), N_CLASSES_CITY, *CITY_FEAT_HW), CITY_HW, False),
+    ("cityscapes-psp18", (MULTI_GOPS * (GOP - 1), N_CLASSES_CITY, *CITY_FEAT_HW), CITY_HW, True),
+    ("bise18", (GOP - 1, N_CLASSES, *FEAT_HW), (H, W), False),
+]
+# H100 SXM: 132 SMs of 128 float32 lanes at the 1.98 GHz boost clock
+CUDA_CORE_OPS_PER_S = 132 * 128 * 1.98e9
+
+
+def resize_argmax_case(gen, dt, shape, size, align):
+    """The resize-and-argmax kernel on logits [N, K, h, w] (channels_last)
+    against its plain version (the resize and argmax over frame chunks) on
+    the card: the maps bit-equal. Beside it F.interpolate and argmax alone
+    over the same chunks (library_ms). Its bounds: the logits read and the
+    int32 maps written once (bytes); a multiply, a multiply-add, a rounding
+    and a compare per output pixel and class on the CUDA cores
+    (instructions)."""
+    from arseg_tpu_torch.nn.functional import frame_chunks
+    from arseg_tpu_torch.ops import resize_argmax_kernel as rak
+
+    x = torch.randn(shape, device="cuda", generator=gen).to(dt)
+    x = x.contiguous(memory_format=torch.channels_last)
+    run = lambda: rak.resized_argmax(x, size, align)
+    plain = lambda: rak.resized_argmax_plain(x, size, align)
+    chunks = frame_chunks(shape[0], shape[1] * size[0] * size[1])
+    lib = lambda: [F.interpolate(x[lo:hi], size=size, mode="bilinear",
+                                 align_corners=align).argmax(dim=1) for lo, hi in chunks]
+    got, want = run(), plain()
+    same = torch.equal(got, want)
+    print(f"resize_bilinear_argmax {str(dt):14s} maps equal to the plain version's: {same} "
+          f"({int((got != want).sum())} pixels differ)", flush=True)
+    if not same:
+        raise SystemExit(f"chip_smoke: resize_bilinear_argmax disagrees with its plain version in "
+                         f"{dt}")
+    del got, want
+    class_px = shape[0] * shape[1] * size[0] * size[1]
+    return dict(max_abs_err=0.0, ms=median_ms(run), plain_ms=median_ms(plain, runs=PLAIN_RUNS_PSP),
+                library_ms=median_ms(lib, runs=PLAIN_RUNS_PSP),
+                bytes=x.numel() * x.element_size() + shape[0] * size[0] * size[1] * 4,
+                ops_ms=4 * class_px / CUDA_CORE_OPS_PER_S * 1e3, flops=0)
+
+
+def resize_argmax_phase():
+    """The resize-and-argmax head at the cells' and camvid-bise18's shapes,
+    in float32 and bfloat16, then ptxas's report of its source:
+    {(name, shape key, dtype): stats}."""
+    import tools_torch_ptxas
+    from arseg_tpu_torch.ops import _build
+
+    phase("the resize-and-argmax head at the cells' shapes")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    stats = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for key, shape, size, align in RESIZE_ARGMAX_CASES:
+            print(f"-- resize_bilinear_argmax at the {key} shape {list(shape)} -> {list(size)} "
+                  f"align_corners={align}, {dt}", flush=True)
+            stats[("resize_bilinear_argmax", key, dt)] = dict(
+                resize_argmax_case(gen, dt, shape, size, align), dims=[*shape, *size])
+            torch.cuda.empty_cache()
+    out_dir = _build.BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        tools_torch_ptxas.report("resize_bilinear_argmax.cu", _build._nvcc(), out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
     return stats
 
 
@@ -1150,6 +1235,7 @@ def kernel_phase():
             stats[(name, shape, dt)] = dict(case(gen, dt, *args), dims=dims)
             torch.cuda.empty_cache()
     stats.update(resize_backward_phase())
+    stats.update(resize_argmax_phase())
     for (name, shape, dt), s in stats.items():
         _bound(s, dt)
         lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
@@ -1245,14 +1331,16 @@ def pipeline_phase():
 
 
 def head_launches(fused_head):
-    """Expected launches of K1 and K5 over a clip of camvid-bise18 "local"
-    with the fused upsample head on or off (None: the module default)."""
+    """Expected launches of K1, K5 and the resize-and-argmax head over a
+    clip of camvid-bise18 "local" with the fused upsample head on or off
+    (None: the module default)."""
     from arseg_tpu_torch.nn import bisenet
 
     if fused_head is None:
         fused_head = bisenet.USE_FUSED_UPSAMPLE_HEAD
     return {"creff_qkv_fused": 0 if fused_head else CLIP_GOPS,
-            "creff_phase2_upsample_argmax": CLIP_GOPS if fused_head else 0}
+            "creff_phase2_upsample_argmax": CLIP_GOPS if fused_head else 0,
+            "resize_bilinear_argmax": 0 if fused_head else CLIP_GOPS}
 
 
 def card_vs_cpu(models, clip, preds_b16, name, norm=(CAMVID_MEAN, CAMVID_STD),
@@ -1420,7 +1508,8 @@ def psp18_phase():
 
 def cityscapes_phase(backend):
     """`backend` AR 0.5x at 1024x2048 (GOP 12, bf16): scan_step over 3 GOPs
-    with its launch counts (K1 and K2 once per GOP), then a short GOP
+    with its launch counts (K1, K2 and the resize-and-argmax head once per
+    GOP), then a short GOP
     (keyframe + 2 frames) at 512x1024 on the card in float32 against the
     CPU."""
     from arseg_tpu_torch.gop import ARPipeline
@@ -1431,7 +1520,8 @@ def cityscapes_phase(backend):
     pipe = ARPipeline(*models, scale=SCALE, dtype=torch.bfloat16, normalize=norm, device="cuda")
     _, launches = run_clip(pipe, make_clip(CLIP_GOPS, hw=CITY_HW), backend, N_CLASSES_CITY)
     k1_k5 = (head_launches(None) if backend == "cityscapes-bise18"
-             else {"creff_qkv_fused": CLIP_GOPS, "creff_phase2_upsample_argmax": 0})
+             else {"creff_qkv_fused": CLIP_GOPS, "creff_phase2_upsample_argmax": 0,
+                   "resize_bilinear_argmax": CLIP_GOPS})
     expect_launches(launches, {"warp_bilinear": CLIP_GOPS, "creff_phase2_argmax": 0,
                                "creff_attention": 0, **k1_k5}, backend)
     del pipe
@@ -1513,12 +1603,27 @@ def psp18_multi_gop_phase():
         "camvid-psp18 V1 multi-GOP")
 
 
+def _plain_head_maps(pipe, kfs, frs, fxs, fys):
+    """The step's maps with the resize-and-argmax head's plain version (the
+    resize and argmax over frame chunks) in place of the kernel."""
+    from arseg_tpu_torch.gop import pipeline
+    from arseg_tpu_torch.ops import resize_argmax_kernel as rak
+
+    kernel = rak.resized_argmax
+    rak.resized_argmax = pipeline.resized_argmax = rak.resized_argmax_plain
+    try:
+        return pipe.gop_step(kfs, frs, (fxs, fys))
+    finally:
+        rak.resized_argmax = pipeline.resized_argmax = kernel
+
+
 def semseg_multi_gop_phase():
     """cityscapes-psp18, 8 GOPs in one gop_step at 1024x2048: its 88 LR
-    frames' 19-class logits at 1024x2048 pass 2^31 elements, so the
-    pipeline's resize-and-argmax head runs over two chunks of 44 frames
-    (two ``gop.head_chunk`` spans; K1 and K2 once), held against
-    scan_step, whose GOPs take one chunk each. In float32 the maps agree
+    frames' 19-class logits at 1024x2048 pass 2^31 elements, which the
+    resize-and-argmax kernel takes in one launch (one ``gop.head_chunk``
+    span; K1 and K2 once), held against scan_step, and bit-equal to the
+    same step with the head's plain version, which takes two chunks of 44
+    frames (F.interpolate refuses the 88 at once). In float32 the maps agree
     >= MULTI_AGREEMENT. In bfloat16 this model's random weights leave many
     near ties (the benchmark's bf16 reference picks another class than its
     float32 one on 0.1-2.8% of pixels), so there the 8-GOP maps must lie
@@ -1535,7 +1640,7 @@ def semseg_multi_gop_phase():
     phase(f"pipeline: {name}, B = {b} GOPs in one gop_step, GOP 12, 1024x2048")
     chunks = len(frame_chunks(b * (GOP - 1), N_CLASSES_CITY * CITY_HW[0] * CITY_HW[1]))
     if chunks != 2:
-        raise SystemExit(f"chip_smoke: {name}: {chunks} head chunks, expected 2")
+        raise SystemExit(f"chip_smoke: {name}: {chunks} plain head chunks, expected 2")
     models = make_models("cityscapes-psp18")
     kfs, frs, fxs, fys = (x.cuda() for x in make_clip(b, hw=CITY_HW))
     launches, maps = None, {}
@@ -1554,11 +1659,11 @@ def semseg_multi_gop_phase():
             expect_launches(launches, {
                 "creff_qkv_fused": 1, "warp_bilinear": 1, "creff_phase2_argmax": 0,
                 "creff_phase2_argmax_lr": 0, "creff_attention": 0,
-                "creff_phase2_upsample_argmax": 0, "resize_bilinear_backward": 0}, name)
+                "creff_phase2_upsample_argmax": 0, "resize_bilinear_backward": 0,
+                "resize_bilinear_argmax": 1}, name)
             spans = [e.name for e in prof.events()].count("gop.head_chunk")
-            if spans != chunks:
-                raise SystemExit(f"chip_smoke: {name}: {spans} gop.head_chunk spans, "
-                                 f"expected {chunks}")
+            if spans != 1:
+                raise SystemExit(f"chip_smoke: {name}: {spans} gop.head_chunk spans, expected 1")
         t_multi = []
         for _ in range(3):
             multi, ms = _sync_ms(lambda: pipe.gop_step(kfs, frs, (fxs, fys)))
@@ -1568,11 +1673,18 @@ def semseg_multi_gop_phase():
         maps[dt] = (multi, scan)
         agree = (multi == scan).float().mean().item()
         frames = b * GOP
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        plain, t_plain = _sync_ms(lambda: _plain_head_maps(pipe, kfs, frs, fxs, fys))
+        same = torch.equal(plain, multi)
         print(f"{name} {dt}: {float(np.median(t_multi)) / frames:.4f} ms/frame (one gop_step of "
               f"{b} GOPs, median of 3; all {[round(x, 3) for x in t_multi]} ms) against "
-              f"scan_step {t_scan / frames:.4f} ms/frame; maps agree {agree:.6f}; head chunks "
-              f"{chunks}; launches {launches}; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+              f"scan_step {t_scan / frames:.4f} ms/frame and the plain head's "
+              f"{t_plain / frames:.4f} ms/frame; maps agree with scan_step {agree:.6f}, bit-equal "
+              f"to the plain head's {same}; launches {launches}; peak memory {peak:.2f} GB",
+              flush=True)
+        if not same:
+            raise SystemExit(f"chip_smoke: {name} maps differ from the plain head's in {dt}")
+        del plain
         del pipe
         torch.cuda.empty_cache()
     f32_multi, f32_scan = maps[torch.float32]
@@ -1589,6 +1701,43 @@ def semseg_multi_gop_phase():
         raise SystemExit(f"chip_smoke: {name} bfloat16 maps lie further from float32 than "
                          "scan_step's")
     del maps, f32_multi, f32_scan, kfs, frs, fxs, fys
+    torch.cuda.empty_cache()
+    return {name: launches}
+
+
+def city_bise_multi_gop_phase():
+    """cityscapes-bise18, 8 GOPs in one gop_step at 1024x2048 (bf16): the
+    planes head over 88 frames of 19 classes at 1024x2048 (3.5e9 resized
+    values, which F.interpolate refuses at once) in one launch of the
+    resize-and-argmax kernel (K1 and K2 once): its maps bit-equal to the
+    same step with the head's plain version (two chunks of 44 frames)."""
+    from arseg_tpu_torch.gop import ARPipeline
+    from arseg_tpu_torch.ops import _build
+
+    b, name = MULTI_GOPS, "cityscapes-bise18 multi-GOP"
+    phase(f"pipeline: {name}, B = {b} GOPs in one gop_step, GOP 12, 1024x2048, bf16")
+    kfs, frs, fxs, fys = (x.cuda() for x in make_clip(b, hw=CITY_HW))
+    pipe = ARPipeline(*make_models("cityscapes-bise18"), scale=SCALE, dtype=torch.bfloat16,
+                      normalize=CITY_NORM["cityscapes-bise18"], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    pipe.gop_step(kfs, frs, (fxs, fys))  # warm-up
+    _build.LAUNCHES.clear()
+    multi, t_multi = _sync_ms(lambda: pipe.gop_step(kfs, frs, (fxs, fys)))
+    launches = dict(_build.LAUNCHES)
+    expect_launches(launches, {"creff_qkv_fused": 1, "warp_bilinear": 1,
+                               "creff_phase2_upsample_argmax": 0, "resize_bilinear_argmax": 1},
+                    name)
+    check_maps_range(multi, (b, GOP, *CITY_HW), N_CLASSES_CITY, name)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    plain, t_plain = _sync_ms(lambda: _plain_head_maps(pipe, kfs, frs, fxs, fys))
+    same = torch.equal(plain, multi)
+    frames = b * GOP
+    print(f"{name} bf16: {t_multi / frames:.4f} ms/frame (one gop_step of {b} GOPs) against the "
+          f"plain head's {t_plain / frames:.4f} ms/frame; maps bit-equal to the plain head's "
+          f"{same}; launches {launches}; peak memory {peak:.2f} GB", flush=True)
+    if not same:
+        raise SystemExit(f"chip_smoke: {name} maps differ from the plain head's")
+    del pipe, multi, plain, kfs, frs, fxs, fys
     torch.cuda.empty_cache()
     return {name: launches}
 
@@ -3509,6 +3658,7 @@ def main():
              **timed(multi_gop_phase, "camvid-bise18 multi-GOP"),
              **timed(psp18_multi_gop_phase, "camvid-psp18 V1 multi-GOP"),
              **timed(semseg_multi_gop_phase, "cityscapes-psp18 multi-GOP"),
+             **timed(city_bise_multi_gop_phase, "cityscapes-bise18 multi-GOP"),
              **timed(lambda: streaming_phase(smi), "camvid-bise18 streaming"),
              **timed(eval_phase, "eval engines")}
     train_launches, stage2_ms = timed(lambda: training_phase(smi), "training")
@@ -3542,6 +3692,9 @@ def main():
         "resize_bilinear_backward": ("arseg_tpu_torch/csrc/resize_bilinear_backward.cu",
                                      "none (the JAX package leaves this backward to XLA)",
                                      "training stage 2 main head x8"),
+        "resize_bilinear_argmax": ("arseg_tpu_torch/csrc/resize_bilinear_argmax.cu",
+                                   "none (the JAX package leaves the head's resize and argmax "
+                                   "to XLA)", "cityscapes-psp18"),
     }
     keys = ("dims", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
             "resize_k3_ms")

@@ -13,7 +13,7 @@ import torch
 
 from arseg_tpu_torch.ops import (_build, creff_attention_kernel, creff_backward_kernel,
                                  creff_head_kernel, creff_kernel, creff_upsample_head_kernel,
-                                 resize_kernel, warp_kernel)
+                                 resize_argmax_kernel, resize_kernel, warp_kernel)
 
 from torch_parity import few_threads  # noqa: F401 (a fixture)
 
@@ -140,7 +140,8 @@ def fake_library(monkeypatch):
 
 def _every_wrapper():
     """One call of each kernel wrapper on meta tensors (the resize backward
-    in both layouts) -> the C launchers they should reach, in order."""
+    in both layouts, the resize-and-argmax head on NCHW bfloat16 logits)
+    -> the C launchers they should reach, in order."""
     a, b = _nhwc(64), _nhwc(64)
     for kernel in NAMES:
         _call(kernel, a, b)
@@ -155,8 +156,10 @@ def _every_wrapper():
     taps, bias, fc_w, fc_b = _packed(64)
     creff_head_kernel.creff_phase2_argmax(_nhwc(64, torch.bfloat16, h=2, w=3),
                                           _nhwc(64, torch.bfloat16), taps, bias, fc_w, fc_b, 7, 7)
+    resize_argmax_kernel.resized_argmax(torch.empty(2, 19, 4, 8, dtype=torch.bfloat16,
+                                                    device=META), (32, 64), False)
     return ([NAMES[k] for k in NAMES] + [warp_kernel.NAME] + [resize_kernel.NAME] * 2
-            + [creff_head_kernel.NAME_LR])
+            + [creff_head_kernel.NAME_LR, resize_argmax_kernel.NAME])
 
 
 def test_every_launch_matches_its_declaration_in_kernels_h(fake_library):
